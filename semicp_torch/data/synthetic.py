@@ -1,0 +1,77 @@
+"""Synthetic labelled scenes and registration pairs, in numpy.
+
+Port of `make_scene` and `make_pair` from `semicp/data/synthetic.py`.
+From the same `np.random.Generator` they draw the same numbers in the
+same order as the JAX package, so they return the same arrays; the only
+difference is that T_gt comes from this package's `se3_exp` (equal to
+the JAX one to f32 rounding).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from semicp_torch.geom.se3 import se3_exp
+
+
+def _plane(rng, n, center, extent, normal_axis, label, thickness=0.02):
+    pts = rng.uniform(-1.0, 1.0, size=(n, 3)) * extent + center
+    pts[:, normal_axis] = center[normal_axis] + rng.normal(size=n) * thickness
+    return pts, np.full(n, label, np.int32)
+
+
+def _cluster(rng, n, center, scale, label):
+    pts = rng.normal(size=(n, 3)) * scale + center
+    return pts, np.full(n, label, np.int32)
+
+
+def make_scene(rng, n_points: int = 4096, extent: float = 20.0, n_classes: int = 6):
+    """Structured labelled scene: ground plane, two walls, clusters.
+
+    Returns (xyz (N,3) float32, labels (N,) int32) with labels in
+    [1, n_classes] (0 is reserved for unlabelled, as in SemanticKITTI).
+    """
+    parts = []
+    n_ground = n_points // 3
+    parts.append(_plane(rng, n_ground, np.array([0.0, 0.0, 0.0]),
+                        np.array([extent, extent, 1.0]), 2, 1))
+    n_wall = n_points // 4
+    parts.append(_plane(rng, n_wall, np.array([extent * 0.7, 0.0, 2.0]),
+                        np.array([1.0, extent, 2.0]), 0, 2))
+    parts.append(_plane(rng, n_wall, np.array([0.0, extent * 0.7, 2.0]),
+                        np.array([extent, 1.0, 2.0]), 1, 3))
+    remaining = n_points - n_ground - 2 * n_wall
+    n_clusters = max(1, n_classes - 3)
+    per = max(1, remaining // n_clusters)
+    for c in range(n_clusters):
+        center = rng.uniform(-extent * 0.6, extent * 0.6, size=3)
+        center[2] = abs(center[2]) * 0.2 + 1.0
+        n_c = per if c < n_clusters - 1 else remaining - per * (n_clusters - 1)
+        parts.append(_cluster(rng, max(n_c, 1), center, 0.8, 4 + (c % max(1, n_classes - 3))))
+    xyz = np.concatenate([p[0] for p in parts]).astype(np.float32)
+    lab = np.concatenate([p[1] for p in parts])
+    perm = rng.permutation(len(xyz))[:n_points]
+    return xyz[perm], lab[perm]
+
+
+def make_pair(rng, scene_xyz: np.ndarray, scene_lab: np.ndarray, delta: np.ndarray,
+              noise: float = 0.02, label_flip: float = 0.0, dropout: float = 0.1,
+              n_classes: int = 6):
+    """Build a (source, source labels, T_gt) registration pair from a scene.
+
+    Target = the scene. Source = a random subset of it moved by T_gt^-1
+    (aligning source onto target recovers T_gt), plus sensor noise and
+    optional label corruption (labels drawn from [0, n_classes)).
+    """
+    T_gt = se3_exp(torch.as_tensor(np.asarray(delta), dtype=torch.float32)).numpy().astype(np.float64)
+    keep = rng.uniform(size=len(scene_xyz)) > dropout
+    src = scene_xyz[keep].astype(np.float64)
+    lab = scene_lab[keep].copy()
+    Tinv = np.linalg.inv(T_gt)
+    src = src @ Tinv[:3, :3].T + Tinv[:3, 3]
+    src = src + rng.normal(size=src.shape) * noise
+    if label_flip > 0:
+        flip = rng.uniform(size=len(lab)) < label_flip
+        lab[flip] = rng.integers(0, n_classes, size=flip.sum())
+    return src.astype(np.float32), lab.astype(np.int32), T_gt.astype(np.float32)

@@ -1,0 +1,122 @@
+"""Build, load and count the package's hand-written CUDA kernels.
+
+The sources in `csrc/` have a plain C interface. At first use they are
+compiled by `nvcc` into one shared library under `_build/` (named by a
+hash of the sources and flags, so an edited source rebuilds) and bound
+with ctypes. Nothing here runs at import: the CPU tests import every
+module on a machine with no `nvcc`.
+
+Every kernel wrapper checks its arguments, launches on PyTorch's current
+stream, raises if the launch reports an error, and adds one to its entry
+in `LAUNCHES` — there and nowhere else — so a run can show that the main
+path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).parent / "csrc"
+BUILD = Path(__file__).parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+LAUNCHES = {"moments_sparse": 0, "nn_sparse": 0, "estep_reduce": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # xyz, tlab, qlab, cand, count, radius, n, n_cand, tb, out, stream
+    "semicp_moments_sparse": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
+    # attrs16, cand, count, q_xyz, n, q, n_cand, tb, num_classes, out_d2, out_attr, stream
+    "semicp_nn_sparse": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
+    # nn_d2, attrs, rc6, moved, log_sem, valid, gate2, num_classes, n, a6, b3, c, wsum, stream
+    "semicp_estep_reduce": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
+}
+
+_lib = None
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME")
+    for cand in (cuda_home and os.path.join(cuda_home, "bin", "nvcc"),
+                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into one shared library unless it is built already."""
+    sources = sorted(CSRC.glob("*.cu"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources + sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    so = BUILD / f"libsemicp_kernels-{h.hexdigest()[:16]}.so"
+    if so.exists():
+        return so
+    BUILD.mkdir(exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def launch(name: str, counter: str, device: torch.device, *args) -> None:
+    """Call C entry `name` on `device`'s current stream; raise on a launch error."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(library(), name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err}")
+    LAUNCHES[counter] += 1
+
+
+def device_scalar(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """x as a (1,) tensor on `device`. A Python number is filled in on the
+    device: `torch.tensor(x, device=cuda)` would be a blocking host copy
+    that waits for every queued kernel."""
+    if torch.is_tensor(x):
+        return x.to(device=device, dtype=dtype).reshape(1)
+    return torch.full((1,), float(x), dtype=dtype, device=device)
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple) -> None:
+    """Validate one kernel argument: CUDA, dtype, shape and contiguity."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")

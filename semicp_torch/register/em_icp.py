@@ -1,0 +1,186 @@
+"""EM semantic registration — the port's `align()` entry point.
+
+Port of `semicp/register/em_icp.py` (the pairwise path). Each EM pass:
+
+  E-step: per-class nearest neighbour of every moved source point
+          (kernel K2 over gate-pruned target tiles, corr/nn_sparse.py),
+          then the weight softmax collapsed over the classes into
+          per-point GN planes (kernel K3, register/estep.py)
+  M-step: frozen-correspondence Gauss-Newton/LM (gauss_newton.py)
+  check:  ||log(T_new T_old^-1)|| < trans_eps
+
+The JAX `while_loop` becomes a host loop whose only device sync is the
+convergence flag, read once per EM pass. Everything else (the GN passes
+included) is queued without waiting on the device.
+
+Engines: on a CPU every engine runs the plain versions, as the JAX
+package's "xla" engine does ("auto" resolves to "xla"). On CUDA "auto"
+resolves to "sparse" at every n_pad; "dense" and "xla" (kernel K4), the
+fused E-step (K6) and raw-layout preprocessing (K5) raise until their
+kernels are ported.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from semicp_torch.cloud.cloud import Cloud
+from semicp_torch.config import Config
+from semicp_torch.corr.layout import LAYOUT_CM, sort_cloud_cm
+from semicp_torch.corr.nn_sparse import (
+    class_nn_attrs_plain,
+    class_nn_attrs_sparse,
+    prepare_sparse,
+)
+from semicp_torch.geom import sym3
+from semicp_torch.geom.se3 import se3_inverse, se3_log
+from semicp_torch.register.estep import estep_reduce
+from semicp_torch.register.gauss_newton import apply_T_planar, gn_solve
+
+ENGINES = ("auto", "dense", "sparse", "xla")
+
+
+@dataclass(frozen=True)
+class AlignResult:
+    T: torch.Tensor            # (4,4) source->target transform
+    iterations: torch.Tensor   # () int32 outer EM iterations executed
+    converged: torch.Tensor    # () bool
+    cost: torch.Tensor         # () float32 final weighted Mahalanobis cost
+    n_corr: torch.Tensor       # () float32 effective correspondence count
+    H: torch.Tensor            # (6,6) GN Hessian at the final pose
+
+
+def use_fused_estep(cfg: Config, q_pad: int) -> bool:
+    """The JAX package's fused E-step dispatch rule (sparse engine only)."""
+    return bool(cfg.em.fused_estep) or q_pad >= cfg.em.fused_auto_min_q
+
+
+def resolve_engine(cfg: Config, device) -> str:
+    """Correspondence engine for clouds on `device` (see module docstring)."""
+    eng = cfg.corr.engine
+    if eng not in ENGINES:
+        raise ValueError(f"corr.engine={eng!r}: expected one of {ENGINES}")
+    if torch.device(device).type != "cuda":
+        return "sparse" if eng == "sparse" else "xla"
+    if eng == "auto":
+        return "sparse"
+    if eng in ("dense", "xla"):
+        # "xla" is the plain dense path, for CPU tensors only; its kernel
+        # on the card would be the dense engine's
+        raise NotImplementedError(
+            f"corr.engine={eng!r} on CUDA needs kernel K4 (class_nn_attrs_pallas), "
+            "still to port (ROADMAP Queue 2); use 'auto' or 'sparse'")
+    return eng
+
+
+def _prepare_target(tgt: Cloud, cfg: Config, engine: str):
+    """Loop-invariant target preparation (once per align)."""
+    if engine == "sparse":
+        return "sparse", prepare_sparse(tgt, cfg.cloud.num_classes, cfg.corr.cell)
+    return "cloud", tgt
+
+
+def _estep(tgt_prep, src: Cloud, log_sem, T, cfg: Config, gate, gate2):
+    """Per-class NN + weight/class reduction for all source points at T.
+
+    Returns (a6 (6,N), b3 (3,N), c (N), wsum (N)).
+    """
+    K = cfg.cloud.num_classes
+    moved = torch.stack(apply_T_planar(T, tuple(src.xyz)))      # (3, N)
+    kind, prep = tgt_prep
+    if kind == "sparse":
+        nn_d2, attrs = class_nn_attrs_sparse(prep, moved, src.valid, K, gate)
+    else:
+        nn_d2, attrs = class_nn_attrs_plain(prep.xyz, prep.label, prep.valid,
+                                            prep.cov6, moved, K)
+    rc = sym3.pack(sym3.rotate(T[:3, :3], tuple(src.cov6)))    # rotated src cov
+    return estep_reduce(nn_d2, attrs, rc, moved, log_sem, src.valid, gate2)
+
+
+def _log_sem(src: Cloud, cfg: Config):
+    """Loop-invariant (K, N) semantic log-prior (confusion-matrix model)."""
+    K = cfg.cloud.num_classes
+    if cfg.em.uniform_semantics:
+        return torch.zeros((K, src.n_pad), dtype=torch.float32, device=src.device)
+    classes = torch.arange(K, dtype=torch.int32, device=src.device)[:, None]
+    match = src.label[None, :] == classes
+    hit = math.log(cfg.em.alpha)
+    miss = math.log((1.0 - cfg.em.alpha) / max(K - 1, 1))
+    return torch.where(match, hit, miss).to(torch.float32)
+
+
+def _align(src: Cloud, tgt: Cloud, T0, gate: float, max_iters: int, cfg: Config,
+           engine: str) -> AlignResult:
+    dev = src.device
+    if engine == "sparse" and src.layout != LAYOUT_CM:
+        # canonical sort once, so query tiles cover compact regions
+        src = sort_cloud_cm(src, cfg.cloud.num_classes, cfg.corr.cell)
+    tgt_prep = _prepare_target(tgt, cfg, engine)
+    log_sem = _log_sem(src, cfg)
+    src_planes = tuple(src.xyz)
+    # scalars are filled in on the device: a host copy would block
+    gate_t = torch.full((), gate, dtype=torch.float32, device=dev)
+    gate2 = gate_t * gate_t
+
+    T = T0
+    it = 0
+    step = torch.full((), float("inf"), dtype=torch.float32, device=dev)
+    cost = torch.zeros((), dtype=torch.float32, device=dev)
+    n_corr = torch.zeros((), dtype=torch.float32, device=dev)
+    H = torch.zeros((6, 6), dtype=torch.float32, device=dev)
+    while it < max_iters:
+        a6, b3, c, wsum = _estep(tgt_prep, src, log_sem, T, cfg, gate_t, gate2)
+        T_new, cost, _, H = gn_solve(T, src_planes, a6, b3, c, cfg.gn)
+        step = torch.linalg.vector_norm(se3_log(T_new @ se3_inverse(T)))
+        n_corr = torch.sum(wsum)
+        T = T_new
+        it += 1
+        if not bool(step > cfg.em.trans_eps):   # the one sync per EM pass
+            break
+    return AlignResult(
+        T=T,
+        iterations=torch.full((), it, dtype=torch.int32, device=dev),
+        converged=step <= cfg.em.trans_eps,
+        cost=cost,
+        n_corr=n_corr,
+        H=H,
+    )
+
+
+def make_align_fn(cfg: Config):
+    """Return align(src, tgt, T0=None, gate=None, max_iters=None) -> AlignResult.
+
+    `gate` and `max_iters` override cfg.corr.max_dist and cfg.em.max_iters
+    per call. Clouds must be preprocessed (preprocess_cloud) and on one
+    device; the result lives there too.
+    """
+
+    def fn(src: Cloud, tgt: Cloud, T0=None, gate=None, max_iters=None) -> AlignResult:
+        dev = src.device
+        if tgt.device != dev:
+            raise ValueError(f"source on {dev} but target on {tgt.device}")
+        engine = resolve_engine(cfg, dev)
+        if engine == "sparse" and dev.type == "cuda" and use_fused_estep(cfg, src.n_pad):
+            raise NotImplementedError(
+                "the fused sparse E-step needs kernel K6 (estep_sparse_fused), still "
+                f"to port (ROADMAP Queue 2): em.fused_estep={cfg.em.fused_estep}, "
+                f"n_pad={src.n_pad} vs em.fused_auto_min_q={cfg.em.fused_auto_min_q}")
+        if T0 is None:
+            T0 = torch.eye(4, dtype=torch.float32, device=dev)
+        T0 = torch.as_tensor(T0, dtype=torch.float32, device=dev)
+        g = float(cfg.corr.max_dist if gate is None else gate)
+        mi = int(cfg.em.max_iters if max_iters is None else max_iters)
+        return _align(src, tgt, T0, g, mi, cfg, engine)
+
+    return fn
+
+
+def align(src: Cloud, tgt: Cloud, cfg: Config | None = None, T_init=None) -> AlignResult:
+    """Align source onto target: returns T with x_tgt ~= T @ x_src.
+
+    Convenience wrapper; reuse `make_align_fn` in loops.
+    """
+    return make_align_fn(cfg or Config())(src, tgt, T_init)

@@ -1,0 +1,256 @@
+"""semicp_torch registration (normal equations, GN/LM, the whole EM
+align) and its data, config and conversion helpers, against semicp on
+the same numpy inputs, all on the CPU.
+
+Tolerances: the whole slice runs the same algorithm in f32 with sums in
+a different order, so T agrees to 1e-4 and the EM trip count to +-1 (the
+early exits make it data dependent, as tests/test_register.py notes for
+padding invariance); both must meet the ground-truth bounds of
+test_align_recovers_gt.
+"""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import semicp
+import semicp_torch
+from semicp.data import make_pair as j_make_pair
+from semicp.data import make_scene as j_make_scene
+from semicp.register.gauss_newton import gn_solve as j_gn_solve
+from semicp.register.residuals import normal_equations_collapsed as j_normal_eq
+from semicp_torch.config import config_from_dict
+from semicp_torch.convert import align_result_to_numpy, cloud_from_numpy
+from semicp_torch.data import make_pair as t_make_pair
+from semicp_torch.data import make_scene as t_make_scene
+from semicp_torch.register.em_icp import resolve_engine
+from semicp_torch.register.gauss_newton import gn_solve as t_gn_solve
+from semicp_torch.register.residuals import normal_equations_collapsed as t_normal_eq
+
+DELTA = np.array([0.3, -0.15, 0.05, 0.02, -0.01, 0.04])
+OVER = {"cloud.num_classes": 6, "cloud.n_pad": 2048}
+
+
+def pose_errors(T, T_ref):
+    err = np.asarray(T, np.float64) @ np.linalg.inv(np.asarray(T_ref, np.float64))
+    return (np.linalg.norm(err[:3, 3]),
+            np.arccos(np.clip((np.trace(err[:3, :3]) - 1) / 2, -1, 1)))
+
+
+@pytest.fixture
+def pair(rng):
+    """The pair of tests/test_register.py."""
+    xyz, lab = j_make_scene(rng, n_points=1200)
+    lab = lab - 1
+    src, slab, T_gt = j_make_pair(rng, xyz, lab, DELTA, noise=0.01, dropout=0.2, n_classes=6)
+    return src, slab, xyz, lab, T_gt
+
+
+def collapsed_planes(rng, N=2048):
+    """Per-point planes shaped like the E-step's output: A SPD."""
+    M = rng.normal(size=(N, 3, 3))
+    A = M @ np.swapaxes(M, -1, -2) + np.eye(3) * 0.1
+    a6 = np.stack([A[:, 0, 0], A[:, 1, 1], A[:, 2, 2], A[:, 0, 1], A[:, 0, 2], A[:, 1, 2]])
+    x = rng.normal(size=(3, N)) * 5
+    b3 = np.einsum("nij,jn->in", A, x)
+    c = np.einsum("in,in->n", x, b3) + rng.uniform(size=N)
+    z = rng.normal(size=(3, N)) * 5
+    return [a.astype(np.float32) for a in (a6, b3, c, z)]
+
+
+def test_normal_equations_collapsed_matches_jax(rng):
+    a6, b3, c, p = collapsed_planes(rng)
+    Hj, gj, cj = j_normal_eq(tuple(jnp.asarray(a6)), tuple(jnp.asarray(b3)), jnp.asarray(c),
+                             tuple(jnp.asarray(p)))
+    Ht, gt, ct = t_normal_eq(torch.from_numpy(a6), torch.from_numpy(b3), torch.from_numpy(c),
+                             tuple(torch.from_numpy(p)))
+    # f32 sums of 2048 terms in different orders: relative to each block's scale
+    np.testing.assert_allclose(Ht.numpy(), np.asarray(Hj), rtol=1e-4, atol=1e-4 * np.abs(Hj).max())
+    np.testing.assert_allclose(gt.numpy(), np.asarray(gj), rtol=1e-4, atol=1e-4 * np.abs(gj).max())
+    np.testing.assert_allclose(float(ct), float(cj), rtol=1e-4)
+
+
+@pytest.mark.parametrize("max_iters", [1, 8])
+def test_gn_solve_matches_jax(rng, max_iters):
+    """Same LM schedule, early exit and returned H; max_iters=1 also
+    checks that the masked fixed loop stops where the while_loop does."""
+    a6, b3, c, z = collapsed_planes(rng)
+    # make the minimum a small known motion of z: b = A T* z
+    T_star = np.asarray(semicp.geom.se3_exp(jnp.asarray([0.1, -0.05, 0.02, 0.01, 0.02, -0.03],
+                                                         jnp.float32)))
+    A = np.asarray(semicp.geom.sym3.to_matrix(tuple(jnp.asarray(a6))))
+    x = (T_star[:3, :3] @ z + T_star[:3, 3:]).astype(np.float32)
+    b3 = np.einsum("nij,jn->in", A, x).astype(np.float32)
+    c = np.einsum("in,in->n", x, b3).astype(np.float32)
+    cfg = semicp.Config().gn.__class__(max_iters=max_iters)
+    tcfg = semicp_torch.Config().gn.__class__(max_iters=max_iters)
+    Tj, cj, sj, Hj = j_gn_solve(jnp.eye(4), tuple(jnp.asarray(z)), tuple(jnp.asarray(a6)),
+                                tuple(jnp.asarray(b3)), jnp.asarray(c), cfg)
+    Tt, ct, st, Ht = t_gn_solve(torch.eye(4), tuple(torch.from_numpy(z)), torch.from_numpy(a6),
+                                torch.from_numpy(b3), torch.from_numpy(c), tcfg)
+    np.testing.assert_allclose(Tt.numpy(), np.asarray(Tj), atol=1e-5)
+    np.testing.assert_allclose(Ht.numpy(), np.asarray(Hj), rtol=1e-4, atol=1e-4 * np.abs(Hj).max())
+    np.testing.assert_allclose(float(st), float(sj), rtol=1e-3, atol=1e-6)
+    if max_iters == 8:
+        np.testing.assert_allclose(Tt.numpy(), T_star, atol=1e-4)
+
+
+def test_align_matches_jax_and_gt(pair):
+    src, slab, tgt, tlab, T_gt = pair
+    cj, ct = semicp.Config().override(OVER), semicp_torch.Config().override(OVER)
+    rj = semicp.align(semicp.preprocess_cloud(semicp.make_cloud(src, slab, n_pad=2048), cj),
+                      semicp.preprocess_cloud(semicp.make_cloud(tgt, tlab, n_pad=2048), cj), cj)
+    rt = semicp_torch.align(
+        semicp_torch.preprocess_cloud(semicp_torch.make_cloud(src, slab, n_pad=2048), ct),
+        semicp_torch.preprocess_cloud(semicp_torch.make_cloud(tgt, tlab, n_pad=2048), ct), ct)
+    np.testing.assert_allclose(rt.T.numpy(), np.asarray(rj.T), atol=1e-4)
+    assert abs(int(rt.iterations) - int(rj.iterations)) <= 1
+    assert bool(rt.converged) and bool(rj.converged)
+    for T in (rt.T.numpy(), np.asarray(rj.T)):
+        terr, rerr = pose_errors(T, T_gt)
+        assert terr < 0.02 and rerr < 0.005, (terr, rerr)
+    np.testing.assert_allclose(float(rt.n_corr), float(rj.n_corr), rtol=1e-3)
+
+
+def test_align_on_jax_preprocessed_clouds(pair):
+    """Both packages align the very same preprocessed clouds."""
+    src, slab, tgt, tlab, T_gt = pair
+    cj = semicp.Config().override(OVER)
+    cs = [semicp.preprocess_cloud(semicp.make_cloud(p, lab, n_pad=2048), cj)
+          for p, lab in ((src, slab), (tgt, tlab))]
+    rj = semicp.align(cs[0], cs[1], cj)
+    tcfg = config_from_dict(dataclasses.asdict(cj))
+    tc = [cloud_from_numpy(c.xyz, c.label, c.cov6, c.valid, c.count, layout=c.layout)
+          for c in cs]
+    for c, j in zip(tc, cs):
+        np.testing.assert_array_equal(c.cov6.numpy(), np.asarray(j.cov6))
+    out = align_result_to_numpy(semicp_torch.make_align_fn(tcfg)(tc[0], tc[1]))
+    assert set(out) == {"T", "iterations", "converged", "cost", "n_corr", "H"}
+    np.testing.assert_allclose(out["T"], np.asarray(rj.T), atol=1e-4)
+    np.testing.assert_allclose(out["H"], np.asarray(rj.H), rtol=1e-3,
+                               atol=1e-3 * np.abs(np.asarray(rj.H)).max())
+
+
+def test_sparse_engine_on_cpu_sorts_raw_source(pair):
+    """engine='sparse' on a CPU runs the plain versions over a prepared
+    target; a raw source is sorted inside align as in the JAX package."""
+    src, slab, tgt, tlab, T_gt = pair
+    ct = semicp_torch.Config().override({**OVER, "corr.engine": "sparse"})
+    s = semicp_torch.preprocess_cloud(semicp_torch.make_cloud(src, slab, n_pad=2048), ct.cov)
+    t = semicp_torch.preprocess_cloud(semicp_torch.make_cloud(tgt, tlab, n_pad=2048), ct)
+    assert s.layout == "raw"
+    res = semicp_torch.make_align_fn(ct)(s, t)
+    terr, rerr = pose_errors(res.T.numpy(), T_gt)
+    assert bool(res.converged) and terr < 0.02 and rerr < 0.005, (terr, rerr)
+
+
+def test_padding_invariance(pair):
+    """Same data, different padding capacity => same answer (the bound of
+    tests/test_register.py: GN/EM early exits may take one extra LM step
+    near step_eps under a different reduction order)."""
+    src, slab, tgt, tlab, T_gt = pair
+    Ts = []
+    for n_pad in (2048, 4096):
+        cfg = semicp_torch.Config().override({**OVER, "cloud.n_pad": n_pad})
+        s = semicp_torch.preprocess_cloud(semicp_torch.make_cloud(src, slab, n_pad=n_pad), cfg)
+        t = semicp_torch.preprocess_cloud(semicp_torch.make_cloud(tgt, tlab, n_pad=n_pad), cfg)
+        Ts.append(semicp_torch.align(s, t, cfg).T.numpy())
+    terr, rerr = pose_errors(Ts[0], Ts[1])
+    assert terr < 5e-5 and rerr < 5e-5, (terr, rerr)
+
+
+def corridor_scene(rng, n):
+    """Ground + two walls, all parallel to x (tests/test_register.py's
+    scene): the only x information is the label boundary at x = 0."""
+    g = np.stack([rng.uniform(-10, 10, n), rng.uniform(-4, 4, n),
+                  rng.normal(size=n) * 0.01], -1)
+    w1 = np.stack([rng.uniform(-10, 10, n // 2),
+                   np.full(n // 2, -4.0) + rng.normal(size=n // 2) * 0.01,
+                   rng.uniform(0, 3, n // 2)], -1)
+    w2 = np.stack([rng.uniform(-10, 10, n // 2),
+                   np.full(n // 2, 4.0) + rng.normal(size=n // 2) * 0.01,
+                   rng.uniform(0, 3, n // 2)], -1)
+    xyz = np.concatenate([g, w1, w2]).astype(np.float32)
+    surf = np.concatenate([np.zeros(n), np.ones(n // 2), np.full(n // 2, 2)])
+    return xyz, (surf * 2 + (xyz[:, 0] > 0)).astype(np.int32)
+
+
+def test_semantics_disambiguate_corridor(rng):
+    """The paper's core claim, as tests/test_register.py pins it for the
+    JAX package: semantic EM-ICP recovers the corridor's x offset, and
+    uniform class weights (em.uniform_semantics) cannot observe it."""
+    tgt, tlab = corridor_scene(rng, 800)
+    delta = np.array([0.6, 0.0, 0.0, 0.0, 0.0, 0.0], np.float32)
+    src, slab, T_gt = t_make_pair(rng, tgt, tlab, delta, noise=0.01, dropout=0.2, n_classes=6)
+    over = {"cloud.num_classes": 6, "cloud.n_pad": 2048, "em.alpha": 0.95, "em.max_iters": 50}
+    terr = {}
+    for uniform in (False, True):
+        cfg = semicp_torch.Config().override({**over, "em.uniform_semantics": uniform})
+        s = semicp_torch.preprocess_cloud(semicp_torch.make_cloud(src, slab, n_pad=2048), cfg)
+        t = semicp_torch.preprocess_cloud(semicp_torch.make_cloud(tgt, tlab, n_pad=2048), cfg)
+        terr[uniform] = pose_errors(semicp_torch.align(s, t, cfg).T.numpy(), T_gt)[0]
+    assert terr[False] < 0.15, terr
+    assert terr[True] > 2 * terr[False], terr
+
+
+def test_engine_dispatch_rules():
+    cfg = semicp_torch.Config()
+    assert resolve_engine(cfg, "cpu") == "xla"
+    assert resolve_engine(cfg.override({"corr.engine": "dense"}), "cpu") == "xla"
+    assert resolve_engine(cfg.override({"corr.engine": "sparse"}), "cpu") == "sparse"
+    # on CUDA "auto" is the sparse kernel at every n_pad; "dense" and the
+    # plain "xla" path need K4
+    for n_pad in (1024, 4096, 1 << 17):
+        assert resolve_engine(cfg.override({"cloud.n_pad": n_pad}), "cuda") == "sparse"
+    assert resolve_engine(cfg.override({"corr.engine": "sparse"}), "cuda") == "sparse"
+    for eng in ("dense", "xla"):
+        with pytest.raises(NotImplementedError, match="K4"):
+            resolve_engine(cfg.override({"corr.engine": eng}), "cuda")
+    with pytest.raises(ValueError):
+        resolve_engine(cfg.override({"corr.engine": "kdtree"}), "cpu")
+
+
+def test_synthetic_data_matches_jax():
+    rj, rt = np.random.default_rng(3), np.random.default_rng(3)
+    xj, lj = j_make_scene(rj, n_points=3000, extent=15.0, n_classes=8)
+    xt, lt = t_make_scene(rt, n_points=3000, extent=15.0, n_classes=8)
+    np.testing.assert_array_equal(xt, xj)
+    np.testing.assert_array_equal(lt, lj)
+    pj = j_make_pair(rj, xj, lj - 1, DELTA, noise=0.02, dropout=0.1, label_flip=0.2, n_classes=8)
+    pt = t_make_pair(rt, xt, lt - 1, DELTA, noise=0.02, dropout=0.1, label_flip=0.2, n_classes=8)
+    # T_gt from each package's f32 se3_exp: equal to f32 rounding, and the
+    # source points through it to ~1e-6 relative
+    np.testing.assert_allclose(pt[2], pj[2], atol=1e-6)
+    np.testing.assert_allclose(pt[0], pj[0], rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(pt[1], pj[1])
+    # both generators consumed the same draws
+    assert rt.uniform() == rj.uniform()
+
+
+def test_config_round_trip_from_jax():
+    cj = semicp.Config().override({"em.max_iters": 7, "corr.max_dist": 1.5,
+                                   "cloud.num_classes": 12})
+    ct = config_from_dict(dataclasses.asdict(cj))
+    assert dataclasses.asdict(ct) == dataclasses.asdict(cj)
+    assert config_from_dict(json.loads(ct.to_json())) == ct
+    with pytest.raises(TypeError):
+        config_from_dict({"em": {"no_such_field": 1}})
+
+
+def test_import_pulls_in_neither_jax_nor_semicp():
+    code = ("import sys, semicp_torch, semicp_torch.convert, semicp_torch.data, "
+            "semicp_torch.kernels; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'semicp')); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": root}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, cwd=root, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
