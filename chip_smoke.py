@@ -1,19 +1,29 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's paths once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero):
 1. require a CUDA device; print the card's name and power limit;
 2. build the hand-written CUDA kernels from semicp_torch/csrc;
-3. each kernel against its plain PyTorch version on the card, at the
-   main path's shapes (the bench scene: 131072-point clouds, 20 classes);
+3. each kernel against its plain PyTorch version on the card: K1, K2, K3
+   and K6 at the main path's shapes (the bench scene: 131072-point clouds,
+   20 classes), K5 at n_pad 32768 and 2048, K4 at n_pad 2048; then K2
+   against K4 at n_pad 2048 to 32768 (the dense/sparse crossover);
 4. the main path at full size: a 120k-point, 20-class scan pair through
    make_cloud -> preprocess_cloud -> make_align_fn(cfg)(src, tgt), with
    the kernel launch counts of that run, the ground-truth error, the
    steady-state time per scan (preprocess of the source plus align) and
    the host syncs of one scan (only the EM convergence flag may sync);
-5. the same slice at n_pad=4096, on the card against the CPU.
+5. the same slice at n_pad=4096, on the card against the CPU;
+6. the small-cloud raw-layout path: a 20-class pair at n_pad 2048 through
+   preprocess_cloud(c, cfg.cov) (K5) and the dense engine (K4, K3), with
+   its launch counts, host syncs, and the card against the CPU;
+7. the map-scale path: a 500000-point, 20-class pair at n_pad 524288
+   through preprocess_cloud (K1) and the fused E-step (K6), with its
+   launch counts and host syncs; K6 against K2 then K3 at 524288 queries;
+   the same pair through the split path, with T and the peak device
+   memory of both.
 
 It prints one JSON line of the kernels' results, the card's name and
 power limit, and last the line {"ok": true, "device": {...}}.
@@ -35,19 +45,34 @@ import torch
 import semicp_torch
 from semicp_torch import kernels
 from semicp_torch.cloud.covariance import estimate_radius
-from semicp_torch.cloud.moments import moments_plain, neighborhood_moments_sparse
+from semicp_torch.cloud.moments import (
+    moments_plain,
+    neighborhood_moments_dense,
+    neighborhood_moments_sparse,
+)
+from semicp_torch.corr.nn_dense import class_nn_attrs_dense, sort_cloud_by_class
 from semicp_torch.corr.nn_sparse import (
     class_nn_attrs_plain,
     class_nn_attrs_sparse,
     prepare_sparse,
 )
 from semicp_torch.data import make_pair, make_scene
-from semicp_torch.register.em_icp import _log_sem
+from semicp_torch.register.em_icp import _log_sem, resolve_engine, use_fused_estep
 from semicp_torch.register.estep import estep_reduce, estep_reduce_plain
+from semicp_torch.register.fused import estep_fused_plain, estep_sparse_fused
 
 N_POINTS, N_CLASSES, N_PAD = 120000, 20, 131072
 DELTA = np.array([0.5, -0.2, 0.05, 0.01, -0.02, 0.04])
 REPEATS = 5
+# phase 6: the small-cloud pair (below corr.sparse_min_n = 4096)
+SMALL_POINTS, SMALL_PAD, SMALL_EXTENT = 1900, 2048, 12.0
+# phase 3: raw-layout moments at run_batch's capacity
+BATCH_POINTS, BATCH_PAD, BATCH_EXTENT = 30000, 32768, 20.0
+# phase 7: map scale (em.fused_auto_min_q = 2^19), the bench scene's density
+MAP_POINTS, MAP_PAD, MAP_EXTENT = 500000, 524288, 80.0
+MAP_REPEATS = 3
+# the E-step's tolerances, (rtol, atol) per output (tests/test_pallas.py)
+ESTEP_TOLS = {"a6": (3e-3, 2e-3), "b3": (3e-3, 5e-3), "c": (3e-3, 5e-3), "wsum": (0.0, 1e-5)}
 
 
 def card_line() -> str:
@@ -111,36 +136,116 @@ def bench_pair(n_points, extent, n_classes):
     return src, slab, xyz, lab, T_gt
 
 
-def check_k1(tgt, cfg, results):
-    """K1 against moments_plain at the covariance level, all points."""
-    label = torch.clamp(tgt.label, min=0)
-    r = estimate_radius(tgt.xyz, label, tgt.valid, k=cfg.cov.k)
-    K = cfg.cloud.num_classes
-    m_k = neighborhood_moments_sparse(tgt.xyz, label, tgt.valid, r, K)
+def compare_moments(tag, kernel, xyz, label, valid, r, count):
+    """A moments kernel against moments_plain at the covariance level, all
+    points. Returns (max_abs_err, kernel ms, plain ms)."""
+    m_k = kernel()
     # reference: the plain version in float64 (exact up to the radius
     # test); the f32 plain is what is timed
-    m_ref = moments_plain(tgt.xyz.double(), label, tgt.valid, r.double())
+    m_ref = moments_plain(xyz.double(), label, valid, r.double())
     cnt_k, cnt_r = m_k[0], m_ref[0]
     n_cnt_diff = int(torch.sum(cnt_k != cnt_r.float()))
     max_cnt_diff = float(torch.max(torch.abs(cnt_k.double() - cnt_r)))
-    sel = tgt.valid & (cnt_r >= 3) & (cnt_k.double() == cnt_r)
+    sel = valid & (cnt_r >= 3) & (cnt_k.double() == cnt_r)
     ck, cr = cov_from_moments(m_k)[:, sel], cov_from_moments(m_ref)[:, sel]
     err = torch.abs(ck - cr)
     atol, rtol = 1e-5, 1e-3
     worst = float(torch.max(err / (atol + rtol * torch.abs(cr))))
     max_abs = float(torch.max(err))
-    ms = cuda_ms(lambda: neighborhood_moments_sparse(tgt.xyz, label, tgt.valid, r, K), 20)
-    plain_ms = cuda_ms(lambda: moments_plain(tgt.xyz, label, tgt.valid, r), 2)
-    print(f"K1 moments_sparse: radius {float(r):.4f} m, cov max_abs_err {max_abs:.3e} "
+    ms = cuda_ms(kernel, 20)
+    plain_ms = cuda_ms(lambda: moments_plain(xyz, label, valid, r), 2)
+    print(f"{tag}: radius {float(r):.4f} m, cov max_abs_err {max_abs:.3e} "
           f"(tol atol {atol} + rtol {rtol}; worst ratio {worst:.3f}); counts differ at "
-          f"{n_cnt_diff} of {int(tgt.count)} points (max |diff| {max_cnt_diff:.0f}, tol <= 1 "
+          f"{n_cnt_diff} of {count} points (max |diff| {max_cnt_diff:.0f}, tol <= 1 "
           f"at <= 1e-4 of the points); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    assert worst <= 1.0, "K1 covariances disagree with the plain version"
-    assert max_cnt_diff <= 1.0 and n_cnt_diff <= 1e-4 * int(tgt.count), "K1 counts disagree"
+    assert worst <= 1.0, f"{tag}: covariances disagree with the plain version"
+    assert max_cnt_diff <= 1.0 and n_cnt_diff <= 1e-4 * count, f"{tag}: counts disagree"
+    return max_abs, ms, plain_ms
+
+
+def check_k1(tgt, cfg, results):
+    """K1 against moments_plain at the covariance level, all points."""
+    label = torch.clamp(tgt.label, min=0)
+    r = estimate_radius(tgt.xyz, label, tgt.valid, k=cfg.cov.k)
+    K = cfg.cloud.num_classes
+    max_abs, ms, plain_ms = compare_moments(
+        "K1 moments_sparse",
+        lambda: neighborhood_moments_sparse(tgt.xyz, label, tgt.valid, r, K),
+        tgt.xyz, label, tgt.valid, r, int(tgt.count))
     results.append({"name": "moments_sparse", "route": "cuda",
                     "source": "semicp_torch/csrc/moments.cu",
                     "replaces": "semicp/cloud/pallas_cov.py:210",
                     "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms})
+
+
+def check_k5(cfg, dev, results):
+    """K5 against moments_plain at the covariance level, all points of a
+    raw-layout cloud: at run_batch's capacity, then at the small path's.
+    The JSON line carries the larger shape's times."""
+    errs, times = [], None
+    for n_points, n_pad, extent in ((BATCH_POINTS, BATCH_PAD, BATCH_EXTENT),
+                                    (SMALL_POINTS, SMALL_PAD, SMALL_EXTENT)):
+        xyz, lab = make_scene(np.random.default_rng(1), n_points=n_points, extent=extent,
+                              n_classes=N_CLASSES)
+        c = semicp_torch.make_cloud(xyz, lab - 1, n_pad=n_pad, device=dev)
+        label = torch.clamp(c.label, min=0)
+        r = estimate_radius(c.xyz, label, c.valid, k=cfg.cov.k)
+        max_abs, ms, plain_ms = compare_moments(
+            f"K5 moments_dense at n_pad {n_pad}",
+            lambda: neighborhood_moments_dense(c.xyz, label, c.valid, r),
+            c.xyz, label, c.valid, r, int(c.count))
+        errs.append(max_abs)
+        times = times or (ms, plain_ms)
+    results.append({"name": "moments_dense", "route": "cuda",
+                    "source": "semicp_torch/csrc/moments_dense.cu",
+                    "replaces": "semicp/cloud/pallas_cov.py:75",
+                    "max_abs_err": max(errs), "ms": times[0], "plain_ms": times[1]})
+
+
+def compare_nn(tag, d2_k, at_k, d2_p, at_p, q, sel):
+    """Per-class NN outputs against the plain version on the (class, query)
+    pairs `sel`: d2 within tolerance, rows equal except at near-ties, whose
+    winner must lie within the d2 tolerance of the plain minimum."""
+    rtol, atol = 1e-4, 1e-3
+    d_err = torch.abs(d2_k - d2_p)[sel]
+    max_abs = float(torch.max(d_err))
+    ok_d2 = bool(torch.all(d_err <= atol + rtol * torch.abs(d2_p[sel])))
+    same = torch.all(at_k == at_p, dim=1) & sel                  # (K, Q)
+    ties = sel & ~same
+    wd = at_k[:, 0:3, :] - q[None]
+    wd2 = torch.sum(wd * wd, dim=1)
+    tie_err = torch.abs(wd2 - d2_p)[ties]
+    ok_ties = bool(torch.all(tie_err <= atol + rtol * torch.abs(d2_p[ties])))
+    ok_found = bool(torch.all(at_k[:, 9, :][sel] == 1.0)) and bool(torch.all(at_k[:, 10:] == 0))
+    print(f"{tag}: {int(sel.sum())} (query, class) pairs compared; d2 max_abs_err "
+          f"{max_abs:.3e} (tol rtol {rtol}, atol {atol}); attrs equal at {int(same.sum())}, "
+          f"near-ties {int(ties.sum())} (all within tol: {ok_ties})")
+    assert ok_d2 and ok_ties and ok_found, f"{tag} disagrees with the plain version"
+    return max_abs, rtol, atol
+
+
+def compare_estep(tag, out_k, out_p):
+    """E-step planes against the reference with ESTEP_TOLS. Returns the
+    a6 max_abs_err."""
+    worst = {}
+    for name, k, p in zip(ESTEP_TOLS, out_k, out_p):
+        rt, at = ESTEP_TOLS[name]
+        worst[name] = float(torch.max(torch.abs(k - p) / (at + rt * torch.abs(p))))
+    max_abs = float(torch.max(torch.abs(out_k[0] - out_p[0])))
+    print(f"{tag}: worst |err|/(atol+rtol|ref|) per output {worst} with (rtol, atol) "
+          f"{ESTEP_TOLS}; a6 max_abs_err {max_abs:.3e}")
+    assert all(v <= 1.0 for v in worst.values()), f"{tag} disagrees with the reference"
+    return max_abs
+
+
+def host_ms(fn):
+    """Host-clock time of one synchronised call of fn (for the plain
+    versions that take seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
 
 
 def check_k2_k3(src, tgt, cfg, results):
@@ -152,39 +257,19 @@ def check_k2_k3(src, tgt, cfg, results):
     q, qv = src.xyz, src.valid
     tv = prep["label_s"] < K
 
-    def plain():
-        return class_nn_attrs_plain(prep["xyz_s"], prep["label_s"], tv,
-                                    prep["attrs16"][3:9], q, K)
-
     d2_k, at_k = class_nn_attrs_sparse(prep, q, qv, K, gate)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    d2_p, at_p = plain()
-    torch.cuda.synchronize()
-    plain_ms = 1e3 * (time.perf_counter() - t0)
+    (d2_p, at_p), plain_ms = host_ms(lambda: class_nn_attrs_plain(
+        prep["xyz_s"], prep["label_s"], tv, prep["attrs16"][3:9], q, K))
     ms = cuda_ms(lambda: class_nn_attrs_sparse(prep, q, qv, K, gate), 20)
 
     inside = (d2_p <= gate * gate * (1.0 - 1e-5)) & qv[None, :]
-    rtol, atol = 1e-4, 1e-3
-    d_err = torch.abs(d2_k - d2_p)[inside]
-    max_abs = float(torch.max(d_err))
-    ok_d2 = bool(torch.all(d_err <= atol + rtol * torch.abs(d2_p[inside])))
-    same = torch.all(at_k == at_p, dim=1) & inside               # (K, Q)
-    ties = inside & ~same
-    # where the winners differ (a near-tie), the kernel's winner must lie
-    # within the d2 tolerance of the plain minimum
-    wd = at_k[:, 0:3, :] - q[None]
-    wd2 = torch.sum(wd * wd, dim=1)
-    tie_err = torch.abs(wd2 - d2_p)[ties]
-    ok_ties = bool(torch.all(tie_err <= atol + rtol * torch.abs(d2_p[ties])))
-    ok_found = bool(torch.all(at_k[:, 9, :][inside] == 1.0)) and bool(torch.all(at_k[:, 10:] == 0))
+    max_abs, rtol, atol = compare_nn(f"K2 nn_sparse (within the {gate} m gate)",
+                                     d2_k, at_k, d2_p, at_p, q, inside)
     outside = ~inside & qv[None, :]
     ok_out = bool(torch.all(d2_k[outside] >= d2_p[outside] * (1 - rtol) - atol))
-    print(f"K2 nn_sparse: {int(inside.sum())} (query, class) pairs within the {gate} m gate; "
-          f"d2 max_abs_err {max_abs:.3e} (tol rtol {rtol}, atol {atol}); attrs equal at "
-          f"{int(same.sum())}, near-ties {int(ties.sum())} (all within tol: {ok_ties}); "
-          f"beyond-gate never closer: {ok_out}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    assert ok_d2 and ok_ties and ok_found and ok_out, "K2 disagrees with the plain version"
+    print(f"K2 nn_sparse: beyond-gate never closer: {ok_out}; kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms")
+    assert ok_out, "K2 reports a neighbour closer than the plain minimum"
     results.append({"name": "nn_sparse", "route": "cuda",
                     "source": "semicp_torch/csrc/nn_sparse.cu",
                     "replaces": "semicp/corr/pallas_nn2.py:545",
@@ -193,24 +278,263 @@ def check_k2_k3(src, tgt, cfg, results):
     log_sem = _log_sem(src, cfg)
     gate2 = torch.tensor(gate * gate, device=q.device)
     args = (d2_k, at_k, src.cov6, q.contiguous(), log_sem, qv, gate2)
-    out_k = estep_reduce(*args)
-    out_p = estep_reduce_plain(*args)
-    names = ("a6", "b3", "c", "wsum")
-    tols = {"a6": (3e-3, 2e-3), "b3": (3e-3, 5e-3), "c": (3e-3, 5e-3), "wsum": (0.0, 1e-5)}
-    worst = {}
-    for name, k, p in zip(names, out_k, out_p):
-        rt, at = tols[name]
-        worst[name] = float(torch.max(torch.abs(k - p) / (at + rt * torch.abs(p))))
-    max_abs = float(torch.max(torch.abs(out_k[0] - out_p[0])))
+    max_abs = compare_estep("K3 estep_reduce", estep_reduce(*args), estep_reduce_plain(*args))
     ms = cuda_ms(lambda: estep_reduce(*args), 50)
     plain_ms = cuda_ms(lambda: estep_reduce_plain(*args), 5)
-    print(f"K3 estep_reduce: worst |err|/(atol+rtol|ref|) per output {worst} with (rtol, atol) "
-          f"{tols}; a6 max_abs_err {max_abs:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    assert all(v <= 1.0 for v in worst.values()), "K3 disagrees with the plain version"
+    print(f"K3 estep_reduce: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
     results.append({"name": "estep_reduce", "route": "cuda",
                     "source": "semicp_torch/csrc/estep.cu",
                     "replaces": "semicp/register/pallas_estep.py:135",
                     "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms})
+
+
+def check_k6(src, tgt, cfg, results):
+    """K6 against estep_fused_plain on all points of the first E-step
+    (T = I) of the bench pair, except at near-ties: points where, for a
+    class within the gate, the plain NN picks another winner than K2's walk
+    (which K6 runs) within the d2 tolerance. Their covariances, and so the
+    planes, may differ by far more than rounding; there K6 is held against
+    K2 then K3 instead, as it is at every point."""
+    K = cfg.cloud.num_classes
+    gate = cfg.corr.max_dist
+    prep = prepare_sparse(tgt, K, cfg.corr.cell)
+    q, qv = src.xyz, src.valid
+    log_sem = _log_sem(src, cfg)
+    args = (prep, q, qv, src.cov6, log_sem, K, gate)
+    out_k = estep_sparse_fused(*args)
+    out_p, plain_ms = host_ms(lambda: estep_fused_plain(*args))
+    d2_s, at_s = class_nn_attrs_sparse(prep, q, qv, K, gate)
+    out_s = estep_reduce(d2_s, at_s, src.cov6, q, log_sem, qv,
+                         torch.full((), gate * gate, device=q.device))
+    label_s = prep["label_s"]
+    d2_p, at_p = class_nn_attrs_plain(prep["xyz_s"], label_s, label_s < K,
+                                      prep["attrs16"][3:9], q, K)
+    differs = ~torch.all(at_s == at_p, dim=1)                    # (K, Q)
+    gated = torch.zeros_like(differs)
+    for at in (at_s, at_p):
+        d = at[:, 0:3, :] - q[None]
+        gated |= (torch.sum(d * d, dim=1) <= gate * gate) & (at[:, 9, :] == 1.0)
+    tie = torch.any(differs & gated, dim=0) & qv                 # (Q,)
+    keep = ~tie
+    max_abs = compare_estep(
+        f"K6 estep_fused against plain (bench shape, {int(keep.sum())} points; "
+        f"{int(tie.sum())} near-tie points left out)",
+        [o[..., keep] for o in out_k], [o[..., keep] for o in out_p])
+    max_abs = max(max_abs, compare_estep("K6 estep_fused against K2 then K3 (bench shape, "
+                                         "all points)", out_k, out_s))
+    ms = cuda_ms(lambda: estep_sparse_fused(*args), 20)
+    print(f"K6 estep_fused: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    results.append({"name": "estep_fused", "route": "cuda",
+                    "source": "semicp_torch/csrc/estep_fused.cu",
+                    "replaces": "semicp/register/pallas_fused.py:230",
+                    "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms})
+
+
+def small_pair(n_points, n_pad, extent, cfg, dev, cov_only):
+    """A pair of preprocessed clouds on `dev` (raw layout with cov_only)."""
+    s_pts, s_lab, t_pts, t_lab, T_gt = bench_pair(n_points, extent, N_CLASSES)
+    pre = cfg.cov if cov_only else cfg
+    return [semicp_torch.preprocess_cloud(semicp_torch.make_cloud(p, lab, n_pad, dev), pre)
+            for p, lab in ((s_pts, s_lab), (t_pts, t_lab))] + [T_gt]
+
+
+def check_k4(cfg, dev, results):
+    """K4 against class_nn_attrs_plain on all valid points of the small
+    pair's first E-step (T = I), over the class-sorted target."""
+    K = cfg.cloud.num_classes
+    src, tgt, _ = small_pair(SMALL_POINTS, SMALL_PAD, SMALL_EXTENT, cfg, dev, cov_only=True)
+    xyz_s, label_s, attrs16 = sort_cloud_by_class(tgt.xyz, tgt.label, tgt.cov6, tgt.valid, K)
+    q = src.xyz
+    d2_k, at_k = class_nn_attrs_dense(xyz_s, label_s, attrs16, q, K)
+    (d2_p, at_p), plain_ms = host_ms(lambda: class_nn_attrs_plain(
+        xyz_s, label_s, label_s < K, attrs16[3:9], q, K))
+    found = d2_p < 1e30
+    assert torch.equal(found, d2_k < 1e30), "K4 found masks differ from the plain version"
+    max_abs, _, _ = compare_nn(f"K4 nn_dense (n_pad {SMALL_PAD}, all valid points)",
+                               d2_k, at_k, d2_p, at_p, q, found & src.valid[None, :])
+    ms = cuda_ms(lambda: class_nn_attrs_dense(xyz_s, label_s, attrs16, q, K), 50)
+    plain_ms = cuda_ms(lambda: class_nn_attrs_plain(xyz_s, label_s, label_s < K,
+                                                    attrs16[3:9], q, K), 5)
+    print(f"K4 nn_dense: found masks equal; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    results.append({"name": "nn_dense", "route": "cuda",
+                    "source": "semicp_torch/csrc/nn_dense.cu",
+                    "replaces": "semicp/corr/pallas_nn2.py:92",
+                    "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms})
+
+
+def crossover(dev):
+    """K2 (with its candidate lists) against K4 on one E-step of a pair at
+    n_pad 2048 to 32768 over the same 20 m scene extent (a scan thinned to
+    fewer points), timed in turns: K2, K4, K4, K2."""
+    for n_pad in (2048, 4096, 8192, 16384, 32768):
+        cfg = semicp_torch.Config().override({"cloud.n_pad": n_pad,
+                                              "cloud.num_classes": N_CLASSES})
+        K, gate = N_CLASSES, cfg.corr.max_dist
+        src, tgt, _ = small_pair(int(0.93 * n_pad), n_pad, 20.0, cfg, dev, cov_only=False)
+        prep = prepare_sparse(tgt, K, cfg.corr.cell)
+        srt = sort_cloud_by_class(tgt.xyz, tgt.label, tgt.cov6, tgt.valid, K)
+
+        def k2():
+            return class_nn_attrs_sparse(prep, src.xyz, src.valid, K, gate)
+
+        def k4():
+            return class_nn_attrs_dense(*srt, src.xyz, K)
+
+        t = [cuda_ms(f, 50) for f in (k2, k4, k4, k2)]
+        print(f"phase 3: crossover at n_pad {n_pad} ({int(src.count)} queries, "
+              f"{int(tgt.count)} targets): K2 sparse {t[0]:.4f} / {t[3]:.4f} ms, "
+              f"K4 dense {t[1]:.4f} / {t[2]:.4f} ms per E-step NN")
+
+
+def phase6(dev):
+    """The small-cloud raw-layout path, counted; returns its launches."""
+    cfg = semicp_torch.Config().override({"cloud.n_pad": SMALL_PAD,
+                                          "cloud.num_classes": N_CLASSES, "em.max_iters": 20})
+    assert resolve_engine(cfg, dev) == "dense", "auto must pick the dense engine"
+    s_pts, s_lab, t_pts, t_lab, T_gt = bench_pair(SMALL_POINTS, SMALL_EXTENT, N_CLASSES)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    raw_src = semicp_torch.make_cloud(s_pts, s_lab, n_pad=SMALL_PAD, device=dev)
+    raw_tgt = semicp_torch.make_cloud(t_pts, t_lab, n_pad=SMALL_PAD, device=dev)
+    src = semicp_torch.preprocess_cloud(raw_src, cfg.cov)
+    tgt = semicp_torch.preprocess_cloud(raw_tgt, cfg.cov)
+    align_fn = semicp_torch.make_align_fn(cfg)
+    res = align_fn(src, tgt)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    T = res.T.cpu().numpy()
+    terr, rerr = pose_errors(T, T_gt)
+    conv = bool(res.converged)
+    print(f"phase 6: small raw-layout pair (n_pad {SMALL_PAD}, {int(src.count)} source and "
+          f"{int(tgt.count)} target points): converged={conv} in {int(res.iterations)} EM "
+          f"iterations, trans_err {terr:.3e} m, rot_err {rerr:.3e} rad; kernel launches "
+          f"{launches}")
+    assert src.layout == tgt.layout == "raw"
+    assert conv, "small raw-layout pair did not converge"
+    assert terr < 0.02 and rerr < 0.005, (terr, rerr)
+    assert np.isfinite(T).all()
+    ran = [k for k in ("moments_dense", "nn_dense", "estep_reduce") if launches[k] == 0]
+    assert not ran, f"kernels not launched on the small raw-layout path: {ran}"
+    stray = [k for k in ("moments_sparse", "nn_sparse") if launches[k] != 0]
+    assert not stray, f"sparse kernels launched on the small raw-layout path: {stray}"
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(REPEATS):
+        res = align_fn(semicp_torch.preprocess_cloud(raw_src, cfg.cov), tgt)
+    torch.cuda.synchronize()
+    ms_scan = 1e3 * (time.perf_counter() - t0) / REPEATS
+    res, sites = host_syncs(lambda: align_fn(semicp_torch.preprocess_cloud(raw_src, cfg.cov),
+                                             tgt))
+    n_sync, iters = sum(sites.values()), int(res.iterations)
+    print(f"phase 6: steady state {ms_scan:.2f} ms per scan (preprocess source + align, "
+          f"{REPEATS} repeats); host syncs in one scan: {n_sync} ({dict(sites)}), "
+          f"{iters} EM iterations")
+    assert n_sync == iters, "a host sync crept into the small-cloud scan beyond the EM flag"
+
+    cpu = torch.device("cpu")
+    s, t = (semicp_torch.preprocess_cloud(semicp_torch.make_cloud(p, lab, SMALL_PAD, cpu),
+                                          cfg.cov)
+            for p, lab in ((s_pts, s_lab), (t_pts, t_lab)))
+    T_cpu = semicp_torch.make_align_fn(cfg)(s, t).T.numpy()
+    diff = float(np.max(np.abs(T - T_cpu)))
+    print(f"phase 6: T card vs CPU max |diff| {diff:.3e} (tol 1e-4)")
+    assert diff <= 1e-4, diff
+    return launches
+
+
+def peak_align(align_fn, src, tgt):
+    """One align with the device's peak memory counter reset before it.
+    Returns (result, peak bytes allocated during the align)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = align_fn(src, tgt)
+    torch.cuda.synchronize()
+    return res, torch.cuda.max_memory_allocated()
+
+
+def phase7(dev, results):
+    """The map-scale path through K6, counted; then K6 against K2 -> K3 at
+    its shape, and the split path's T, time and peak memory. Returns the
+    fused path's launches."""
+    cfg = semicp_torch.Config().override({"cloud.n_pad": MAP_PAD,
+                                          "cloud.num_classes": N_CLASSES, "em.max_iters": 20})
+    K = N_CLASSES
+    assert resolve_engine(cfg, dev) == "sparse" and use_fused_estep(cfg, MAP_PAD)
+    s_pts, s_lab, t_pts, t_lab, T_gt = bench_pair(MAP_POINTS, MAP_EXTENT, K)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    src, tgt = (semicp_torch.preprocess_cloud(
+        semicp_torch.make_cloud(p, lab, n_pad=MAP_PAD, device=dev), cfg)
+        for p, lab in ((s_pts, s_lab), (t_pts, t_lab)))
+    fused_fn = semicp_torch.make_align_fn(cfg)
+    res = fused_fn(src, tgt)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    T = res.T.cpu().numpy()
+    terr, rerr = pose_errors(T, T_gt)
+    conv = bool(res.converged)
+    print(f"phase 7: map-scale pair (n_pad {MAP_PAD}, {int(src.count)} source and "
+          f"{int(tgt.count)} target points; first run {first_s:.2f} s): converged={conv} in "
+          f"{int(res.iterations)} EM iterations, trans_err {terr:.3e} m, rot_err {rerr:.3e} "
+          f"rad; kernel launches {launches}")
+    assert conv, "map-scale pair did not converge"
+    assert terr < 0.02 and rerr < 0.005, (terr, rerr)
+    assert np.isfinite(T).all()
+    assert launches["estep_fused"] > 0, "the fused E-step (K6) was not launched"
+    stray = [k for k in ("nn_sparse", "estep_reduce") if launches[k] != 0]
+    assert not stray, f"split E-step kernels launched on the fused path: {stray}"
+
+    split_fn = semicp_torch.make_align_fn(cfg.override({"em.fused_auto_min_q": 2 * MAP_PAD}))
+    ms = {}
+    for name, fn in (("fused", fused_fn), ("split", split_fn), ("split", split_fn),
+                     ("fused", fused_fn)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MAP_REPEATS):
+            fn(src, tgt)
+        torch.cuda.synchronize()
+        ms.setdefault(name, []).append(1e3 * (time.perf_counter() - t0) / MAP_REPEATS)
+    res, sites = host_syncs(lambda: fused_fn(src, tgt))
+    n_sync, iters = sum(sites.values()), int(res.iterations)
+    res_f, peak_f = peak_align(fused_fn, src, tgt)
+    res_s, peak_s = peak_align(split_fn, src, tgt)
+    diff = float(np.max(np.abs(res_f.T.cpu().numpy() - res_s.T.cpu().numpy())))
+    print(f"phase 7: steady state ms per align (rounds of {MAP_REPEATS}, in turns): fused "
+          f"{ms['fused']}, split {ms['split']}; {iters} EM iterations (split "
+          f"{int(res_s.iterations)}); host syncs of one fused align: {n_sync} ({dict(sites)})")
+    print(f"phase 7: peak device memory allocated during one align: fused "
+          f"{peak_f / 2**30:.3f} GiB, split {peak_s / 2**30:.3f} GiB; T fused vs split max "
+          f"|diff| {diff:.3e} (tol 1e-4)")
+    assert n_sync == iters, "a host sync crept into the fused align beyond the EM flag"
+    assert diff <= 1e-4, diff
+    assert peak_f < peak_s, "the fused path did not lower the peak device memory"
+
+    # K6 against K2 then K3 at the map-scale shape (the plain version is
+    # too slow here), on the first E-step (T = I)
+    gate = cfg.corr.max_dist
+    prep = prepare_sparse(tgt, K, cfg.corr.cell)
+    log_sem = _log_sem(src, cfg)
+    q, qv = src.xyz, src.valid
+    gate2 = torch.full((), gate * gate, device=dev)
+
+    def split_estep():
+        d2, at = class_nn_attrs_sparse(prep, q, qv, K, gate)
+        return estep_reduce(d2, at, src.cov6, q, log_sem, qv, gate2)
+
+    def fused_estep():
+        return estep_sparse_fused(prep, q, qv, src.cov6, log_sem, K, gate)
+
+    max_abs = compare_estep(f"K6 estep_fused against K2 then K3 at {MAP_PAD} queries",
+                            fused_estep(), split_estep())
+    t = [cuda_ms(f, 5) for f in (fused_estep, split_estep, split_estep, fused_estep)]
+    print(f"phase 7: one E-step at {MAP_PAD} queries: K6 {t[0]:.3f} / {t[3]:.3f} ms, "
+          f"K2 then K3 {t[1]:.3f} / {t[2]:.3f} ms")
+    entry = next(r for r in results if r["name"] == "estep_fused")
+    entry["max_abs_err"] = max(entry["max_abs_err"], max_abs)
+    return launches
 
 
 def main() -> None:
@@ -236,6 +560,10 @@ def main() -> None:
         semicp_torch.make_cloud(tgt_pts, tgt_lab, n_pad=N_PAD, device=dev), cfg)
     check_k1(tgt, cfg, results)
     check_k2_k3(src, tgt, cfg, results)
+    check_k6(src, tgt, cfg, results)
+    check_k5(cfg, dev, results)
+    check_k4(cfg, dev, results)
+    crossover(dev)
     print(f"phase 3: kernels against plain in {time.perf_counter() - t0:.1f} s")
 
     # phase 4: the main path, counted
@@ -260,10 +588,9 @@ def main() -> None:
     assert conv, "main path did not converge"
     assert terr < 0.02 and rerr < 0.005, (terr, rerr)
     assert np.isfinite(T).all()
-    missing = [k for k, v in launches.items() if v == 0]
+    main_path = ("moments_sparse", "nn_sparse", "estep_reduce")
+    missing = [k for k in main_path if launches[k] == 0]
     assert not missing, f"kernels not launched on the main path: {missing}"
-    for r in results:
-        r["launches"] = launches[r["name"]]
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -294,6 +621,19 @@ def main() -> None:
     print(f"phase 5: n_pad=4096 T card vs CPU max |diff| {diff:.3e} (tol 1e-4); "
           f"card trans_err {terr_s:.3e} m")
     assert diff <= 1e-4, diff
+
+    # phases 6 and 7: each path's launches are read just after it, and
+    # each kernel reports the count of the path that runs it
+    t0 = time.perf_counter()
+    small = phase6(dev)
+    print(f"phase 6: done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    big = phase7(dev, results)
+    print(f"phase 7: done in {time.perf_counter() - t0:.1f} s")
+    path = {"moments_sparse": launches, "nn_sparse": launches, "estep_reduce": launches,
+            "moments_dense": small, "nn_dense": small, "estep_fused": big}
+    for r in results:
+        r["launches"] = path[r["name"]][r["name"]]
 
     print(json.dumps({"kernels": results}))
     print(card)

@@ -5,9 +5,9 @@ and is checked against in the tests). Sub-packages and module names
 follow `semicp` so that each module's counterpart is easy to find:
 
   geom/      SE(3) Lie group math, planar symmetric 3x3 algebra
-  cloud/     padded planar clouds, radius covariances, moments (kernel K1)
-  corr/      class-major Morton layout, per-class NN (kernel K2)
-  register/  E-step reduction (kernel K3), GN/LM M-step, EM align
+  cloud/     padded planar clouds, radius covariances, moments (kernels K1, K5)
+  corr/      class-major Morton layout, per-class NN (kernels K2, K4)
+  register/  E-step reduction (kernels K3, K6), GN/LM M-step, EM align
   data/      synthetic scenes and pairs (numpy)
 
 The hand-written CUDA kernels live in csrc/ and are built by nvcc at

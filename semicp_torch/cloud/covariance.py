@@ -3,7 +3,8 @@
 Port of `semicp/cloud/covariance.py` (the radius method). The radius is
 density-adaptive by default: the median k-th-nearest-neighbour distance
 over a strided sample of points, times 1.3. The neighbourhood moments
-come from cloud/moments.py (kernel K1 on CUDA), then the epilogue
+come from cloud/moments.py (on CUDA, kernel K1 over a class-major cloud
+and K5 over all pairs otherwise), then the epilogue
 C = S2/n - mean mean^T and the rank-1 GICP clamp C -> I - (1-eps) n n^T.
 """
 
@@ -98,8 +99,8 @@ def preprocess_cloud(cloud: Cloud, cfg, class_aware: bool = True) -> Cloud:
     With a full `Config`, the cloud is first put in canonical class-major
     Morton layout (one sort shared by the moments kernel here and the
     nearest-neighbour kernel inside align). With a bare `CovConfig`,
-    the layout is left as it is (on CUDA that needs kernel K5, not
-    ported yet).
+    the layout is left as it is and the dense moments run over all pairs
+    (kernel K5 on CUDA), as they do for `class_aware=False`.
     """
     num_classes = None
     if hasattr(cfg, "cov"):                  # full Config

@@ -13,8 +13,10 @@ covariance follows in cloud/covariance.py's epilogue.
   candidate tiles within the radius. Its moments are centred on each
   query point: equal covariances through the epilogue, not equal raw
   moments.
-* `neighborhood_moments_dense` is the raw-layout path: plain on the CPU,
-  kernel K5 (still to port) on CUDA.
+* `neighborhood_moments_dense` is the raw-layout path (a bare CovConfig,
+  or class_aware=False): plain on the CPU, kernel K5 (csrc/moments_dense.cu)
+  over all pairs on CUDA. Like K1's, its moments are centred on each
+  query point.
 """
 
 from __future__ import annotations
@@ -85,17 +87,28 @@ def neighborhood_moments_sparse(xyz, label, valid, radius, num_classes: int):
 
 
 def neighborhood_moments_dense(xyz, label, valid, radius):
-    """(10, N) raw masked moments over all pairs of a raw-layout cloud.
+    """(10, N) masked moments over all pairs of a cloud in any layout (K5).
 
-    A CPU tensor takes `moments_plain`. On CUDA this needs the dense
-    kernel K5, which is not ported yet.
+    A CPU tensor takes `moments_plain` (raw moments); a CUDA tensor
+    launches K5 (query-centred moments, equal covariances through the
+    epilogue). `radius` may be a float or a 0-dim tensor (it stays on the
+    device).
     """
     if not xyz.is_cuda:
         return moments_plain(xyz, label, valid, radius)
-    raise NotImplementedError(
-        "dense moments over a raw-layout cloud need kernel K5 "
-        "(neighborhood_moments_pallas), still to port (ROADMAP Queue 2); "
-        "preprocess with a full Config to use the class-major path")
+    n = xyz.shape[1]
+    label = label.to(torch.int32)
+    tlab = torch.where(valid, label, torch.full_like(label, -1)).contiguous()
+    qlab = torch.where(valid, label, torch.full_like(label, -2)).contiguous()
+    xyz = xyz.contiguous()
+    kernels.check(xyz, "xyz", torch.float32, (3, n))
+    kernels.check(tlab, "label", torch.int32, (n,))
+    rad = kernels.device_scalar(radius, torch.float32, xyz.device)
+    out = torch.empty((NMOM, n), dtype=torch.float32, device=xyz.device)
+    kernels.launch("semicp_moments_dense", "moments_dense", xyz.device,
+                   xyz.data_ptr(), tlab.data_ptr(), qlab.data_ptr(), rad.data_ptr(), n,
+                   out.data_ptr())
+    return out
 
 
 def neighborhood_moments_auto(xyz, label, valid, radius, num_classes=None,

@@ -6,6 +6,7 @@ from semicp_torch.corr.layout import (  # noqa: F401
     tile_candidates,
     tile_meta,
 )
+from semicp_torch.corr.nn_dense import class_nn_attrs_dense, sort_cloud_by_class  # noqa: F401
 from semicp_torch.corr.nn_sparse import (  # noqa: F401
     class_nn_attrs_plain,
     class_nn_attrs_sparse,

@@ -65,6 +65,26 @@ def class_nn_attrs_plain(tgt_xyz, tgt_label, tgt_valid, tgt_cov6, q_xyz, num_cla
     return d2, torch.cat([win, spare], dim=1)
 
 
+def query_candidates(prep: dict, q_xyz, q_valid, gate, who: str):
+    """Candidate target tiles of each 256-query tile within `gate` (the
+    walk of K2 and K6). Returns (cand, count, tb) after checking shapes."""
+    n = prep["xyz_s"].shape[1]
+    q = q_xyz.shape[1]
+    tb = n // prep["lo"].shape[0]
+    if q % QB:
+        raise ValueError(f"{who}: Q={q} must be a multiple of the query tile {QB} "
+                         f"(pad queries to a power of two >= {QB})")
+    if tb % QB or n % tb:
+        raise ValueError(f"{who}: target tile tb={tb} must be a multiple of {QB} "
+                         f"and divide N={n}")
+    qlo, qhi = tile_aabbs(q_xyz, q_valid, QB)
+    cand, count = tile_candidates(qlo, qhi, prep["lo"], prep["hi"], gate)
+    kernels.check(prep["attrs16"], "attrs16", torch.float32, (NATTR, n))
+    kernels.check(cand, "cand", torch.int32, (q // QB, n // tb))
+    kernels.check(count, "count", torch.int32, (q // QB,))
+    return cand, count, tb
+
+
 def class_nn_attrs_sparse(prep: dict, q_xyz, q_valid, num_classes: int, gate):
     """Block-sparse per-class NN over a prepared target (K2 on CUDA).
 
@@ -79,25 +99,13 @@ def class_nn_attrs_sparse(prep: dict, q_xyz, q_valid, num_classes: int, gate):
                                     prep["attrs16"][3:9], q_xyz, num_classes)
     n = prep["xyz_s"].shape[1]
     q = q_xyz.shape[1]
-    tb = n // prep["lo"].shape[0]
-    if q % QB:
-        raise ValueError(f"class_nn_attrs_sparse: Q={q} must be a multiple of the "
-                         f"query tile {QB} (pad queries to a power of two >= {QB})")
-    if tb % QB or n % tb:
-        raise ValueError(f"class_nn_attrs_sparse: target tile tb={tb} must be a "
-                         f"multiple of {QB} and divide N={n}")
-    qlo, qhi = tile_aabbs(q_xyz, q_valid, QB)
-    cand, count = tile_candidates(qlo, qhi, prep["lo"], prep["hi"], gate)
+    cand, count, tb = query_candidates(prep, q_xyz, q_valid, gate, "class_nn_attrs_sparse")
     q_xyz = q_xyz.contiguous()
-    attrs16 = prep["attrs16"]
-    kernels.check(attrs16, "attrs16", torch.float32, (NATTR, n))
     kernels.check(q_xyz, "q_xyz", torch.float32, (3, q))
-    kernels.check(cand, "cand", torch.int32, (q // QB, n // tb))
-    kernels.check(count, "count", torch.int32, (q // QB,))
     out_d2 = torch.empty((num_classes, q), dtype=torch.float32, device=q_xyz.device)
     out_attr = torch.empty((num_classes, NATTR, q), dtype=torch.float32, device=q_xyz.device)
     kernels.launch("semicp_nn_sparse", "nn_sparse", q_xyz.device,
-                   attrs16.data_ptr(), cand.data_ptr(), count.data_ptr(), q_xyz.data_ptr(),
-                   n, q, cand.shape[1], tb, num_classes, out_d2.data_ptr(),
-                   out_attr.data_ptr())
+                   prep["attrs16"].data_ptr(), cand.data_ptr(), count.data_ptr(),
+                   q_xyz.data_ptr(), n, q, cand.shape[1], tb, num_classes,
+                   out_d2.data_ptr(), out_attr.data_ptr())
     return out_d2, out_attr

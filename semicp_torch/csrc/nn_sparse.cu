@@ -24,18 +24,16 @@
 // layout a tile's labels are non-decreasing, so the cache is written back
 // only where the class changes. Correctness does not depend on the
 // layout. The winners' rows are gathered from the attribute slab at the
-// end, so the walk itself moves no attributes.
+// end, so the walk itself moves no attributes. The walk is
+// `nn_sparse_walk` in common.cuh, shared with the fused E-step (K6).
 
 #include "common.cuh"
 
 namespace {
 
+using semicp::kAttr;
 using semicp::kInf;
 using semicp::kQB;
-
-constexpr int kAttr = 16;   // attribute rows
-constexpr int kRowT2 = 10;  // |t|^2 row of the prepared slab
-constexpr int kRowLab = 11; // label row (float class id; num_classes = invalid)
 
 __global__ void __launch_bounds__(kQB)
 nn_sparse_kernel(const float* __restrict__ attrs, const int* __restrict__ cand,
@@ -43,66 +41,14 @@ nn_sparse_kernel(const float* __restrict__ attrs, const int* __restrict__ cand,
                  int n, int q, int n_cand, int tb, int num_classes,
                  float* __restrict__ out_d2, float* __restrict__ out_attr) {
   extern __shared__ float smem[];
-  float* sx = smem;
-  float* sy = sx + kQB;
-  float* sz = sy + kQB;
-  float* st2 = sz + kQB;
-  int* sl = reinterpret_cast<int*>(st2 + kQB);
-  float* best_d = reinterpret_cast<float*>(sl + kQB);        // (K, kQB)
+  float* best_d = smem + 5 * kQB;                            // (K, kQB)
   int* best_i = reinterpret_cast<int*>(best_d + num_classes * kQB);
 
   const int t = threadIdx.x;
   const int qi = blockIdx.x * kQB + t;
-  const float qx = q_xyz[qi], qy = q_xyz[q + qi], qz = q_xyz[2 * q + qi];
-  const float q2 = qx * qx + qy * qy + qz * qz;
-  const float m2x = -2.f * qx, m2y = -2.f * qy, m2z = -2.f * qz;
-
-  for (int k = 0; k < num_classes; ++k) {
-    best_d[k * kQB + t] = kInf;
-    best_i[k * kQB + t] = -1;
-  }
-
-  int cur_k = -1;  // class whose best sits in (cur_d, cur_i)
-  float cur_d = kInf;
-  int cur_i = -1;
-
-  const int cnt = count[blockIdx.x];
-  for (int c = 0; c < cnt; ++c) {
-    const int base = cand[blockIdx.x * n_cand + c] * tb;
-    for (int s = 0; s < tb; s += kQB) {
-      __syncthreads();
-      const int g = base + s + t;
-      sx[t] = attrs[g];
-      sy[t] = attrs[n + g];
-      sz[t] = attrs[2 * n + g];
-      st2[t] = attrs[kRowT2 * n + g];
-      sl[t] = static_cast<int>(attrs[kRowLab * n + g]);
-      __syncthreads();
-      for (int j = 0; j < kQB; ++j) {
-        const int lab = sl[j];
-        if (lab < 0 || lab >= num_classes) continue;  // padding / invalid
-        const float d2 = fmaf(m2z, sz[j], fmaf(m2y, sy[j], fmaf(m2x, sx[j], q2 + st2[j])));
-        if (lab != cur_k) {
-          if (cur_k >= 0) {
-            best_d[cur_k * kQB + t] = cur_d;
-            best_i[cur_k * kQB + t] = cur_i;
-          }
-          cur_k = lab;
-          cur_d = best_d[lab * kQB + t];
-          cur_i = best_i[lab * kQB + t];
-        }
-        const int gi = base + s + j;
-        if (d2 < cur_d || (d2 == cur_d && gi < cur_i)) {
-          cur_d = d2;
-          cur_i = gi;
-        }
-      }
-    }
-  }
-  if (cur_k >= 0) {
-    best_d[cur_k * kQB + t] = cur_d;
-    best_i[cur_k * kQB + t] = cur_i;
-  }
+  semicp::nn_sparse_walk(attrs, cand + blockIdx.x * n_cand, count[blockIdx.x], n, tb,
+                         num_classes, q_xyz[qi], q_xyz[q + qi], q_xyz[2 * q + qi], smem,
+                         best_d, best_i);
 
   for (int k = 0; k < num_classes; ++k) {
     const int i = best_i[k * kQB + t];
@@ -128,7 +74,7 @@ extern "C" cudaError_t semicp_nn_sparse(const float* attrs16, const int* cand,
                                         int q, int n_cand, int tb, int num_classes,
                                         float* out_d2, float* out_attr,
                                         cudaStream_t stream) {
-  const size_t smem = 5 * kQB * sizeof(float) + static_cast<size_t>(num_classes) * kQB * 8;
+  const size_t smem = semicp::nn_sparse_smem_bytes(num_classes);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         nn_sparse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));

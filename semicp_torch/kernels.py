@@ -1,10 +1,11 @@
 """Build, load and count the package's hand-written CUDA kernels.
 
-The sources in `csrc/` have a plain C interface. At first use they are
-compiled by `nvcc` into one shared library under `_build/` (named by a
-hash of the sources and flags, so an edited source rebuilds) and bound
-with ctypes. Nothing here runs at import: the CPU tests import every
-module on a machine with no `nvcc`.
+The sources in `csrc/` have a plain C interface. At first use each is
+compiled by its own `nvcc` process, all started together, and the objects
+are linked into one shared library under `_build/` (named by a hash of
+the sources and flags, so an edited source rebuilds), bound with ctypes.
+Nothing here runs at import: the CPU tests import every module on a
+machine with no `nvcc`.
 
 Every kernel wrapper checks its arguments, launches on PyTorch's current
 stream, raises if the launch reports an error, and adds one to its entry
@@ -26,9 +27,10 @@ import torch
 CSRC = Path(__file__).parent / "csrc"
 BUILD = Path(__file__).parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
-LAUNCHES = {"moments_sparse": 0, "nn_sparse": 0, "estep_reduce": 0}
+LAUNCHES = {"moments_sparse": 0, "nn_sparse": 0, "estep_reduce": 0,
+            "moments_dense": 0, "nn_dense": 0, "estep_fused": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,6 +41,14 @@ _SIGNATURES = {
     "semicp_nn_sparse": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     # nn_d2, attrs, rc6, moved, log_sem, valid, gate2, num_classes, n, a6, b3, c, wsum, stream
     "semicp_estep_reduce": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
+    # xyz, tlab, qlab, radius, n, out, stream
+    "semicp_moments_dense": (_P, _P, _P, _P, _I, _P, _P),
+    # xyz_s, label_s, attrs16, q_xyz, n, q, num_classes, out_d2, out_attr, stream
+    "semicp_nn_dense": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
+    # attrs16, cand, count, q_xyz, q_valid, rc6, log_sem, gate2, n, q, n_cand, tb,
+    # num_classes, a6, b3, c, wsum, stream
+    "semicp_estep_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _P, _P, _P, _P, _P),
 }
 
 _lib = None
@@ -69,11 +79,28 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD.mkdir(exist_ok=True)
+    nvcc = _nvcc()
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+    # one compiler per source, all at once: the build is as long as the
+    # slowest source, not the sum
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    errors = []
+    for src, proc in zip(sources, procs):
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{src.name} ({proc.returncode}):\n{out}")
+    if not errors:
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            errors.append(f"link ({proc.returncode}):\n{proc.stderr}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if errors:
+        raise RuntimeError("nvcc failed: " + "\n".join(errors))
     os.replace(tmp, so)
     return so
 

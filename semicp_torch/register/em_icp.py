@@ -3,9 +3,11 @@
 Port of `semicp/register/em_icp.py` (the pairwise path). Each EM pass:
 
   E-step: per-class nearest neighbour of every moved source point
-          (kernel K2 over gate-pruned target tiles, corr/nn_sparse.py),
-          then the weight softmax collapsed over the classes into
-          per-point GN planes (kernel K3, register/estep.py)
+          (kernel K2 over gate-pruned target tiles, corr/nn_sparse.py,
+          or K4 over a class-sorted target for small clouds,
+          corr/nn_dense.py), then the weight softmax collapsed over the
+          classes into per-point GN planes (kernel K3, register/estep.py);
+          at map scale both in one kernel (K6, register/fused.py)
   M-step: frozen-correspondence Gauss-Newton/LM (gauss_newton.py)
   check:  ||log(T_new T_old^-1)|| < trans_eps
 
@@ -13,11 +15,12 @@ The JAX `while_loop` becomes a host loop whose only device sync is the
 convergence flag, read once per EM pass. Everything else (the GN passes
 included) is queued without waiting on the device.
 
-Engines: on a CPU every engine runs the plain versions, as the JAX
-package's "xla" engine does ("auto" resolves to "xla"). On CUDA "auto"
-resolves to "sparse" at every n_pad; "dense" and "xla" (kernel K4), the
-fused E-step (K6) and raw-layout preprocessing (K5) raise until their
-kernels are ported.
+Engines, as in the JAX package: "sparse" (K2), "dense" (K4) and the
+plain "xla". On CUDA "auto" resolves to "sparse" at n_pad >=
+corr.sparse_min_n and to "dense" below it; on a CPU it resolves to
+"xla", and the kernel wrappers of a forced engine run their plain
+versions. The sparse engine runs the fused E-step (K6) where
+`use_fused_estep` says so, on every device. "xla" is for CPU tensors.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import torch
 from semicp_torch.cloud.cloud import Cloud
 from semicp_torch.config import Config
 from semicp_torch.corr.layout import LAYOUT_CM, sort_cloud_cm
+from semicp_torch.corr.nn_dense import class_nn_attrs_dense, sort_cloud_by_class
 from semicp_torch.corr.nn_sparse import (
     class_nn_attrs_plain,
     class_nn_attrs_sparse,
@@ -38,6 +42,7 @@ from semicp_torch.corr.nn_sparse import (
 from semicp_torch.geom import sym3
 from semicp_torch.geom.se3 import se3_inverse, se3_log
 from semicp_torch.register.estep import estep_reduce
+from semicp_torch.register.fused import estep_sparse_fused
 from semicp_torch.register.gauss_newton import apply_T_planar, gn_solve
 
 ENGINES = ("auto", "dense", "sparse", "xla")
@@ -63,23 +68,26 @@ def resolve_engine(cfg: Config, device) -> str:
     eng = cfg.corr.engine
     if eng not in ENGINES:
         raise ValueError(f"corr.engine={eng!r}: expected one of {ENGINES}")
-    if torch.device(device).type != "cuda":
-        return "sparse" if eng == "sparse" else "xla"
+    cuda = torch.device(device).type == "cuda"
     if eng == "auto":
-        return "sparse"
-    if eng in ("dense", "xla"):
-        # "xla" is the plain dense path, for CPU tensors only; its kernel
-        # on the card would be the dense engine's
+        if not cuda:
+            return "xla"
+        return "sparse" if cfg.cloud.n_pad >= cfg.corr.sparse_min_n else "dense"
+    if eng == "xla" and cuda:
         raise NotImplementedError(
-            f"corr.engine={eng!r} on CUDA needs kernel K4 (class_nn_attrs_pallas), "
-            "still to port (ROADMAP Queue 2); use 'auto' or 'sparse'")
+            "corr.engine='xla' is the plain dense path, for CPU tensors only; on CUDA "
+            "use 'dense' (kernel K4) or 'auto'")
     return eng
 
 
 def _prepare_target(tgt: Cloud, cfg: Config, engine: str):
     """Loop-invariant target preparation (once per align)."""
+    K = cfg.cloud.num_classes
     if engine == "sparse":
-        return "sparse", prepare_sparse(tgt, cfg.cloud.num_classes, cfg.corr.cell)
+        return "sparse", prepare_sparse(tgt, K, cfg.corr.cell)
+    if engine == "dense":
+        xyz_s, label_s, attrs16 = sort_cloud_by_class(tgt.xyz, tgt.label, tgt.cov6, tgt.valid, K)
+        return "sorted", {"xyz_s": xyz_s, "label_s": label_s, "attrs16": attrs16}
     return "cloud", tgt
 
 
@@ -90,13 +98,19 @@ def _estep(tgt_prep, src: Cloud, log_sem, T, cfg: Config, gate, gate2):
     """
     K = cfg.cloud.num_classes
     moved = torch.stack(apply_T_planar(T, tuple(src.xyz)))      # (3, N)
+    rc = sym3.pack(sym3.rotate(T[:3, :3], tuple(src.cov6)))    # rotated src cov
     kind, prep = tgt_prep
     if kind == "sparse":
+        if use_fused_estep(cfg, src.n_pad):
+            # one kernel: no (K, 16, N) intermediate in device memory
+            return estep_sparse_fused(prep, moved, src.valid, rc, log_sem, K, gate)
         nn_d2, attrs = class_nn_attrs_sparse(prep, moved, src.valid, K, gate)
+    elif kind == "sorted":
+        nn_d2, attrs = class_nn_attrs_dense(prep["xyz_s"], prep["label_s"], prep["attrs16"],
+                                            moved, K)
     else:
         nn_d2, attrs = class_nn_attrs_plain(prep.xyz, prep.label, prep.valid,
                                             prep.cov6, moved, K)
-    rc = sym3.pack(sym3.rotate(T[:3, :3], tuple(src.cov6)))    # rotated src cov
     return estep_reduce(nn_d2, attrs, rc, moved, log_sem, src.valid, gate2)
 
 
@@ -163,11 +177,6 @@ def make_align_fn(cfg: Config):
         if tgt.device != dev:
             raise ValueError(f"source on {dev} but target on {tgt.device}")
         engine = resolve_engine(cfg, dev)
-        if engine == "sparse" and dev.type == "cuda" and use_fused_estep(cfg, src.n_pad):
-            raise NotImplementedError(
-                "the fused sparse E-step needs kernel K6 (estep_sparse_fused), still "
-                f"to port (ROADMAP Queue 2): em.fused_estep={cfg.em.fused_estep}, "
-                f"n_pad={src.n_pad} vs em.fused_auto_min_q={cfg.em.fused_auto_min_q}")
         if T0 is None:
             T0 = torch.eye(4, dtype=torch.float32, device=dev)
         T0 = torch.as_tensor(T0, dtype=torch.float32, device=dev)

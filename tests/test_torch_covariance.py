@@ -20,7 +20,7 @@ from semicp.corr.layout import sort_cloud_cm as j_sort_cloud_cm
 from semicp.config import CovConfig as JCovConfig
 from semicp.data import make_scene
 from semicp_torch.cloud.covariance import estimate_radius as t_estimate_radius
-from semicp_torch.cloud.moments import moments_plain, neighborhood_moments_auto
+from semicp_torch.cloud.moments import moments_plain
 from semicp_torch.config import CovConfig as TCovConfig
 
 
@@ -121,14 +121,11 @@ def test_preprocess_bare_covconfig_keeps_layout(rng):
     assert np.isclose(c_t, c_j, rtol=2e-3, atol=2e-3).mean() > 0.995
 
 
-class _OnCuda:
-    """Stands in for a CUDA tensor where only the dispatch is tested."""
-    is_cuda = True
-
-
 def test_unported_paths_raise():
+    """The kNN covariances are the one preprocessing path still to port.
+    The raw layout, which raised on CUDA until K5, now runs everywhere."""
     c = semicp_torch.make_cloud(np.zeros((10, 3), np.float32), n_pad=256)
     with pytest.raises(NotImplementedError, match="Queue 1"):
         semicp_torch.preprocess_cloud(c, TCovConfig(method="knn"))
-    with pytest.raises(NotImplementedError, match="K5"):
-        neighborhood_moments_auto(_OnCuda(), None, None, 1.0, num_classes=5, layout="raw")
+    out = semicp_torch.preprocess_cloud(c, TCovConfig(radius=0.5))
+    assert out.layout == "raw" and torch.isfinite(out.cov6).all()

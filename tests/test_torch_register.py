@@ -202,17 +202,24 @@ def test_semantics_disambiguate_corridor(rng):
 
 def test_engine_dispatch_rules():
     cfg = semicp_torch.Config()
+    # on a CPU "auto" is the plain path; a forced engine is kept (its
+    # wrappers take their plain versions there)
     assert resolve_engine(cfg, "cpu") == "xla"
-    assert resolve_engine(cfg.override({"corr.engine": "dense"}), "cpu") == "xla"
-    assert resolve_engine(cfg.override({"corr.engine": "sparse"}), "cpu") == "sparse"
-    # on CUDA "auto" is the sparse kernel at every n_pad; "dense" and the
-    # plain "xla" path need K4
-    for n_pad in (1024, 4096, 1 << 17):
-        assert resolve_engine(cfg.override({"cloud.n_pad": n_pad}), "cuda") == "sparse"
-    assert resolve_engine(cfg.override({"corr.engine": "sparse"}), "cuda") == "sparse"
-    for eng in ("dense", "xla"):
-        with pytest.raises(NotImplementedError, match="K4"):
-            resolve_engine(cfg.override({"corr.engine": eng}), "cuda")
+    for eng in ("dense", "sparse", "xla"):
+        assert resolve_engine(cfg.override({"corr.engine": eng}), "cpu") == eng
+    # on CUDA "auto" is the JAX package's rule: the sparse kernel (K2) at
+    # n_pad >= corr.sparse_min_n, the dense kernel (K4) below it
+    assert cfg.corr.sparse_min_n == 4096
+    for n_pad, eng in ((1024, "dense"), (2048, "dense"), (4096, "sparse"),
+                       (1 << 17, "sparse")):
+        assert resolve_engine(cfg.override({"cloud.n_pad": n_pad}), "cuda") == eng
+    for eng in ("dense", "sparse"):
+        for n_pad in (1024, 1 << 17):
+            over = {"corr.engine": eng, "cloud.n_pad": n_pad}
+            assert resolve_engine(cfg.override(over), "cuda") == eng
+    # the plain "xla" path is for CPU tensors only
+    with pytest.raises(NotImplementedError, match="'dense'"):
+        resolve_engine(cfg.override({"corr.engine": "xla"}), "cuda")
     with pytest.raises(ValueError):
         resolve_engine(cfg.override({"corr.engine": "kdtree"}), "cpu")
 
