@@ -23,7 +23,17 @@ Phases (any failure raises and exits non-zero):
    through preprocess_cloud (K1) and the fused E-step (K6), with its
    launch counts and host syncs; K6 against K2 then K3 at 524288 queries;
    the same pair through the split path, with T and the peak device
-   memory of both.
+   memory of both;
+8. frame-to-frame odometry at full width: a 20-frame KITTI-layout
+   sequence of 120000-point scans with raw SemanticKITTI labels, written
+   to a temporary directory and run through semicp_torch.cli.run_odometry
+   (loader -> prefetch -> K1 -> K2, K3 -> poses.txt, JSONL -> ATE/RPE),
+   with its launch counts, ATE/RPE, ms per frame and host syncs; again
+   with --prefetch 0 (equal poses); and a 6-frame sequence of 1900-point
+   scans (n_pad 2048: K1, K4, K3) on the card against the CPU;
+9. the baselines on the card: NDT (plain, semantic, d2d) on the bench
+   pair at n_pad 131072, and the corridor pair, where semantic EM-ICP
+   must recover the offset that GICP cannot observe.
 
 It prints one JSON line of the kernels' results, the card's name and
 power limit, and last the line {"ok": true, "device": {...}}.
@@ -33,11 +43,15 @@ Imports torch, numpy and semicp_torch only.
 from __future__ import annotations
 
 import collections
+import contextlib
+import io
 import json
 import os
 import subprocess
+import tempfile
 import time
 import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -56,8 +70,20 @@ from semicp_torch.corr.nn_sparse import (
     class_nn_attrs_sparse,
     prepare_sparse,
 )
-from semicp_torch.data import make_pair, make_scene
+from semicp_torch.cli import run_odometry
+from semicp_torch.data import (
+    SEMANTICKITTI_REMAP,
+    load_kitti_poses,
+    make_pair,
+    make_scene,
+    make_trajectory,
+    native,
+    render_scan,
+    save_kitti_poses,
+)
+from semicp_torch.register import align_gicp, em_icp
 from semicp_torch.register.em_icp import _log_sem, resolve_engine, use_fused_estep
+from semicp_torch.register.ndt import align_ndt
 from semicp_torch.register.estep import estep_reduce, estep_reduce_plain
 from semicp_torch.register.fused import estep_fused_plain, estep_sparse_fused
 
@@ -71,6 +97,13 @@ BATCH_POINTS, BATCH_PAD, BATCH_EXTENT = 30000, 32768, 20.0
 # phase 7: map scale (em.fused_auto_min_q = 2^19), the bench scene's density
 MAP_POINTS, MAP_PAD, MAP_EXTENT = 500000, 524288, 80.0
 MAP_REPEATS = 3
+# phase 8: the odometry sequence (KITTI layout), and the card-vs-CPU one
+SEQ_FRAMES, SEQ_SCENE, SEQ_EXTENT, SEQ_RANGE, SEQ_SCAN, SEQ_PAD = 20, 480000, 30.0, 25.0, 120000, N_PAD
+# (1900 points within 8 m: at 14 m one pair had two EM fixed points 2e-4
+# apart, and f32 rounding of the covariances picked one or the other)
+SMALL_FRAMES, SMALL_SCENE, SMALL_SEQ_EXTENT, SMALL_RANGE = 6, 8000, 10.0, 8.0
+# phase 9: the corridor pair of tests/test_register.py
+CORRIDOR_POINTS, CORRIDOR_PAD = 1200, 4096
 # the E-step's tolerances, (rtol, atol) per output (tests/test_pallas.py)
 ESTEP_TOLS = {"a6": (3e-3, 2e-3), "b3": (3e-3, 5e-3), "c": (3e-3, 5e-3), "wsum": (0.0, 1e-5)}
 
@@ -537,6 +570,199 @@ def phase7(dev, results):
     return launches
 
 
+def write_sequence(root: Path, n_frames, n_scene, extent, max_range, max_points):
+    """A KITTI-layout sequence under root: velodyne/*.bin (N,4) f32 with
+    zero reflectance; labels/*.label as uint32 raw SemanticKITTI ids that
+    SEMANTICKITTI_REMAP sends back to the scene's train ids 1..19; and the
+    ground truth in a camera frame, gt.txt and calib.txt's Tr, as
+    tests/test_odometry.py writes them. Returns the sequence directory."""
+    rng = np.random.default_rng(0)
+    scene, labels = make_scene(rng, n_points=n_scene, extent=extent, n_classes=19)
+    raw_of = {}
+    for raw, train in sorted(SEMANTICKITTI_REMAP.items(), reverse=True):
+        raw_of[train] = raw                      # the smallest raw id of each train id
+    raw_lut = np.array([raw_of[k] for k in range(N_CLASSES)], np.uint32)
+    traj = make_trajectory(n_frames, step=0.6, turn=0.05, seed=0).astype(np.float64)
+    seq = root / "seq"
+    (seq / "velodyne").mkdir(parents=True)
+    (seq / "labels").mkdir()
+    for i, pose in enumerate(traj):
+        pts, lab = render_scan(rng, scene, labels, pose, max_range=max_range,
+                               max_points=max_points)
+        arr = np.zeros((len(pts), 4), np.float32)
+        arr[:, :3] = pts
+        arr.tofile(seq / "velodyne" / f"{i:06d}.bin")
+        raw_lut[lab].tofile(seq / "labels" / f"{i:06d}.label")
+    Tr = np.eye(4)
+    Tr[:3, :3] = np.array([[0, -1, 0], [0, 0, -1], [1, 0, 0]], np.float64)
+    save_kitti_poses(root / "gt.txt", Tr[None] @ traj @ np.linalg.inv(Tr)[None])
+    (root / "calib.txt").write_text("Tr: " + " ".join(str(v) for v in Tr[:3].reshape(-1)) + "\n")
+    return seq
+
+
+def odometry(root: Path, seq: Path, tag: str, device: str, extra: list):
+    """run_odometry.main on the sequence; its JSON line is kept off stdout.
+    Returns (result dict, poses (N,4,4), JSONL records)."""
+    argv = ["--seq", str(seq), "--voxel", "0", "--gt", str(root / "gt.txt"),
+            "--calib", str(root / "calib.txt"), "--out", str(root / f"{tag}.txt"),
+            "--jsonl", str(root / f"{tag}.jsonl"), "--device", device, *extra]
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = run_odometry.main(argv)
+    recs = [json.loads(line) for line in (root / f"{tag}.jsonl").read_text().splitlines()]
+    return out, load_kitti_poses(root / f"{tag}.txt"), recs
+
+
+def sync_line(module, marker: str) -> str:
+    """'path:line' of the source line of `module` holding `marker`."""
+    path = os.path.relpath(module.__file__)
+    lines = Path(module.__file__).read_text().splitlines()
+    return f"{path}:{next(i for i, s in enumerate(lines, 1) if marker in s)}"
+
+
+def relative_poses(P):
+    return np.linalg.inv(P[:-1]) @ P[1:]
+
+
+def phase8(dev, card):
+    """Frame-to-frame odometry at full width, counted; then the same
+    sequence at --prefetch 0, and a small sequence on the card against the
+    CPU. Returns (the full-width run's launches, the small run's)."""
+    big = ["--prefetch", "2", f"--cloud.n_pad={SEQ_PAD}", f"--cloud.num_classes={N_CLASSES}",
+           "--em.max_iters=20"]
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        seq = write_sequence(root, SEQ_FRAMES, SEQ_SCENE, SEQ_EXTENT, SEQ_RANGE, SEQ_SCAN)
+        print(f"phase 8: wrote a {SEQ_FRAMES}-frame KITTI-layout sequence of {SEQ_SCAN}-point "
+              f"scans in {time.perf_counter() - t0:.1f} s; scan loader: "
+              f"{'native (g++)' if native.native_available() else 'numpy'}")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out, P, recs = odometry(root, seq, "p2", "cuda", big)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        iters = [r["iterations"] for r in recs]
+        t_wall = [r["t_wall"] for r in recs]
+        ms_frame = 1e3 * (t_wall[-1] - t_wall[0]) / (len(t_wall) - 1)
+        tm = out["timing"]
+        print(f"phase 8: {out['frames']} frames at n_pad {SEQ_PAD}: ATE {out['ate_rmse_m']:.3e} m, "
+              f"RPE {out['rpe_trans_m']:.3e} m / {out['rpe_rot_rad']:.3e} rad; EM iterations per "
+              f"frame {iters}; all converged: {all(r['converged'] for r in recs)}; kernel "
+              f"launches {launches}")
+        print(f"phase 8: steady state {ms_frame:.2f} ms per frame (JSONL clock, frame 1 "
+              f"excluded); PhaseTimer means: preprocess {tm['preprocess']['mean_ms']:.2f} ms "
+              f"(enqueue), align {tm['align']['mean_ms']:.2f} ms; on {card}")
+        assert out["frames"] == SEQ_FRAMES and P.shape == (SEQ_FRAMES, 4, 4)
+        assert np.loadtxt(root / "p2.txt").shape == (SEQ_FRAMES, 12)
+        assert len(recs) == SEQ_FRAMES - 1 and np.isfinite(P).all()
+        assert out["ate_rmse_m"] < 0.05 and out["rpe_trans_m"] < 0.02, out
+        missing = [k for k in ("moments_sparse", "nn_sparse", "estep_reduce") if launches[k] == 0]
+        assert not missing, f"kernels not launched on the odometry path: {missing}"
+        stray = [k for k in ("nn_dense", "moments_dense", "estep_fused") if launches[k] != 0]
+        assert not stray, f"kernels off the odometry path launched: {stray}"
+
+        out0, P0, _ = odometry(root, seq, "p0", "cuda", big[2:] + ["--prefetch", "0"])
+        diff0 = float(np.max(np.abs(P0 - P)))
+        (_, P2s, recs_s), sites = host_syncs(lambda: odometry(root, seq, "p2s", "cuda", big))
+        flag = sync_line(em_icp, "the one sync per EM pass")
+        cloud_py = os.path.relpath(semicp_torch.cloud.cloud.__file__)
+        n_flag = sites.get(flag, 0)
+        n_upload = sum(n for s, n in sites.items() if s.startswith(cloud_py + ":"))
+        n_other = sum(sites.values()) - n_flag - n_upload
+        sum_iters = sum(r["iterations"] for r in recs_s)
+        print(f"phase 8: poses with --prefetch 0 against 2: max |diff| {diff0:.3e} (tol 1e-6); "
+              f"a third run: max |diff| {float(np.max(np.abs(P2s - P))):.3e}")
+        print(f"phase 8: host syncs over the run: {n_flag} EM flags (JSONL iterations "
+              f"{sum_iters}), {n_other} others for {SEQ_FRAMES} frames, and {n_upload} in the "
+              f"scans' uploads (make_cloud); by line {dict(sites)}")
+        assert diff0 <= 1e-6, diff0
+        # beyond the flag of every EM pass (retries included) at most one
+        # sync a frame: the result copy that carries its health check
+        assert n_flag >= sum_iters and n_other <= SEQ_FRAMES, (n_flag, sum_iters, n_other)
+
+        # a small sequence (n_pad 2048: the dense engine, K4) on the card
+        # against the CPU
+        small = ["--prefetch", "2", f"--cloud.n_pad={SMALL_PAD}",
+                 f"--cloud.num_classes={N_CLASSES}", "--em.max_iters=20"]
+        sroot = root / "small"
+        sroot.mkdir()
+        sseq = write_sequence(sroot, SMALL_FRAMES, SMALL_SCENE, SMALL_SEQ_EXTENT, SMALL_RANGE,
+                              SMALL_POINTS)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out_c, Pc, _ = odometry(sroot, sseq, "cuda", "cuda", small)
+        torch.cuda.synchronize()
+        small_launches = dict(kernels.LAUNCHES)
+        out_h, Ph, _ = odometry(sroot, sseq, "cpu", "cpu", small)
+        rel = float(np.max(np.abs(relative_poses(Pc) - relative_poses(Ph))))
+        print(f"phase 8: {SMALL_FRAMES}-frame sequence of {SMALL_POINTS}-point scans at n_pad "
+              f"{SMALL_PAD}: relative poses card vs CPU max |diff| {rel:.3e} (tol 1e-4); ATE "
+              f"card {out_c['ate_rmse_m']:.3e} m, CPU {out_h['ate_rmse_m']:.3e} m; kernel "
+              f"launches {small_launches}")
+        assert rel <= 1e-4, rel
+        assert out_c["frames"] == out_h["frames"] == SMALL_FRAMES
+        assert small_launches["nn_dense"] > 0, "the dense NN (K4) was not launched"
+    return launches, small_launches
+
+
+def corridor_scene(rng, n):
+    """tests/test_register.py's corridor: ground + two walls, all parallel
+    to x, so the only x information is the label boundary at x = 0."""
+    g = np.stack([rng.uniform(-10, 10, n), rng.uniform(-4, 4, n),
+                  rng.normal(n) * 0 + rng.normal(size=n) * 0.01], -1)
+    w1 = np.stack([rng.uniform(-10, 10, n // 2), np.full(n // 2, -4.0)
+                   + rng.normal(size=n // 2) * 0.01, rng.uniform(0, 3, n // 2)], -1)
+    w2 = np.stack([rng.uniform(-10, 10, n // 2), np.full(n // 2, 4.0)
+                   + rng.normal(size=n // 2) * 0.01, rng.uniform(0, 3, n // 2)], -1)
+    xyz = np.concatenate([g, w1, w2]).astype(np.float32)
+    surf = np.concatenate([np.zeros(n), np.ones(n // 2), np.full(n // 2, 2)])
+    lab = (surf * 2 + (xyz[:, 0] > 0)).astype(np.int32)
+    return xyz, lab
+
+
+def phase9(src, tgt, T_gt, cfg, dev):
+    """NDT's three variants on the preprocessed bench pair, then the
+    corridor pair (semantic EM-ICP against GICP). Returns the launches."""
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    for kw in ({}, {"semantic": True}, {"d2d": True}):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = align_ndt(src, tgt, cfg, voxel=1.0, **kw)
+        T = res.T.cpu().numpy()
+        ms = 1e3 * (time.perf_counter() - t0)
+        err = T.astype(np.float64) @ np.linalg.inv(np.asarray(T_gt, np.float64))
+        terr, rfro = float(np.linalg.norm(err[:3, 3])), float(np.linalg.norm(err[:3, :3] - np.eye(3)))
+        name = next(iter(kw), "plain")
+        print(f"phase 9: NDT {name} on the bench pair (n_pad {N_PAD}, voxel 1.0 m): "
+              f"{int(res.iterations)} EM iterations, {ms:.1f} ms (voxelization included), "
+              f"trans_err {terr:.3e} m, rotation Frobenius error {rfro:.3e} (tol 0.10, 0.05)")
+        assert np.isfinite(T).all() and terr < 0.10 and rfro < 0.05, (name, terr, rfro)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    print(f"phase 9: NDT kernel launches {launches}")
+    missing = [k for k in ("nn_sparse", "estep_reduce") if launches[k] == 0]
+    assert not missing, f"kernels not launched on the NDT path: {missing}"
+
+    rng = np.random.default_rng(0)
+    c_tgt, c_tlab = corridor_scene(rng, CORRIDOR_POINTS)
+    delta = np.array([0.6, 0.0, 0.0, 0.0, 0.0, 0.0], np.float32)
+    c_src, c_slab, c_T = make_pair(rng, c_tgt, c_tlab, delta, noise=0.01, dropout=0.2,
+                                   n_classes=6)
+    ccfg = semicp_torch.Config().override({"cloud.n_pad": CORRIDOR_PAD, "cloud.num_classes": 6,
+                                           "em.alpha": 0.95, "em.max_iters": 50})
+    assert resolve_engine(ccfg, dev) == "sparse"
+    s, t = (semicp_torch.preprocess_cloud(semicp_torch.make_cloud(p, lab, CORRIDOR_PAD, dev),
+                                          ccfg.cov)
+            for p, lab in ((c_src, c_slab), (c_tgt, c_tlab)))
+    terr_s, _ = pose_errors(semicp_torch.align(s, t, ccfg).T.cpu().numpy(), c_T)
+    terr_u, _ = pose_errors(align_gicp(s, t, ccfg).T.cpu().numpy(), c_T)
+    print(f"phase 9: corridor pair (n_pad {CORRIDOR_PAD}, sparse engine): semantic trans_err "
+          f"{terr_s:.3e} m (tol 0.15), GICP {terr_u:.3e} m (must exceed 2x semantic)")
+    assert terr_s < 0.15 and terr_u > 2 * terr_s, (terr_s, terr_u)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
@@ -630,8 +856,16 @@ def main() -> None:
     t0 = time.perf_counter()
     big = phase7(dev, results)
     print(f"phase 7: done in {time.perf_counter() - t0:.1f} s")
-    path = {"moments_sparse": launches, "nn_sparse": launches, "estep_reduce": launches,
-            "moments_dense": small, "nn_dense": small, "estep_fused": big}
+    t0 = time.perf_counter()
+    odo, odo_small = phase8(dev, card)
+    print(f"phase 8: done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase9(src, tgt, T_gt, cfg, dev)
+    print(f"phase 9: done in {time.perf_counter() - t0:.1f} s")
+    # each kernel reports the launches of this slice's path that runs it:
+    # the odometry for K1-K4, phase 6 for K5, phase 7 for K6
+    path = {"moments_sparse": odo, "nn_sparse": odo, "estep_reduce": odo,
+            "nn_dense": odo_small, "moments_dense": small, "estep_fused": big}
     for r in results:
         r["launches"] = path[r["name"]][r["name"]]
 

@@ -4,11 +4,16 @@ The PyTorch port of the JAX package `semicp` (which stays the reference
 and is checked against in the tests). Sub-packages and module names
 follow `semicp` so that each module's counterpart is easy to find:
 
-  geom/      SE(3) Lie group math, planar symmetric 3x3 algebra
+  geom/      SE(3) Lie group math, planar symmetric 3x3 algebra, 3x3 eigh
   cloud/     padded planar clouds, radius covariances, moments (kernels K1, K5)
   corr/      class-major Morton layout, per-class NN (kernels K2, K4)
-  register/  E-step reduction (kernels K3, K6), GN/LM M-step, EM align
-  data/      synthetic scenes and pairs (numpy)
+  register/  E-step reduction (kernels K3, K6), GN/LM M-step, EM align,
+             the robust and pipelined aligners, GICP and NDT baselines
+  data/      KITTI, PCD and native scan loaders; synthetic scenes (numpy)
+  eval/      ATE / RPE (numpy, float64)
+  utils/     JSONL metrics, phase timers, device drain
+  slam/      the scan prefetcher
+  cli/       run_pair and run_odometry (--device cuda|cpu)
 
 The hand-written CUDA kernels live in csrc/ and are built by nvcc at
 first use (kernels.py). On a CPU tensor every kernel wrapper takes its

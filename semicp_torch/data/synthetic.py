@@ -1,10 +1,11 @@
-"""Synthetic labelled scenes and registration pairs, in numpy.
+"""Synthetic labelled scenes, registration pairs and scan sequences, in numpy.
 
-Port of `make_scene` and `make_pair` from `semicp/data/synthetic.py`.
-From the same `np.random.Generator` they draw the same numbers in the
-same order as the JAX package, so they return the same arrays; the only
-difference is that T_gt comes from this package's `se3_exp` (equal to
-the JAX one to f32 rounding).
+Port of `semicp/data/synthetic.py`. From the same `np.random.Generator`
+(or seed) every function draws the same numbers in the same order as the
+JAX package, so scenes are equal to the bit; what passes through an
+SE(3) exponential (T_gt of `make_pair`, the poses of `make_trajectory`
+and the scans rendered from them) uses this package's f32 `se3_exp`,
+equal to the JAX one to f32 rounding.
 """
 
 from __future__ import annotations
@@ -75,3 +76,33 @@ def make_pair(rng, scene_xyz: np.ndarray, scene_lab: np.ndarray, delta: np.ndarr
         flip = rng.uniform(size=len(lab)) < label_flip
         lab[flip] = rng.integers(0, n_classes, size=flip.sum())
     return src.astype(np.float32), lab.astype(np.int32), T_gt.astype(np.float32)
+
+
+def make_trajectory(n_frames: int, step: float = 1.0, turn: float = 0.02, seed: int = 0):
+    """Smooth SE(3) trajectory (N,4,4) float32: forward motion with gentle
+    yaw, the odometry tests' ground truth."""
+    rng = np.random.default_rng(seed)
+    poses = [np.eye(4, dtype=np.float32)]
+    for i in range(1, n_frames):
+        yaw = turn * np.sin(i * 0.1) + rng.normal() * turn * 0.1
+        d = np.array([step, rng.normal() * 0.01, rng.normal() * 0.005,
+                      rng.normal() * 0.002, rng.normal() * 0.002, yaw], np.float32)
+        rel = se3_exp(torch.from_numpy(d)).numpy()
+        poses.append(poses[-1] @ rel)
+    return np.stack(poses)
+
+
+def render_scan(rng, scene_xyz: np.ndarray, scene_lab: np.ndarray, pose: np.ndarray,
+                max_range: float = 25.0, noise: float = 0.02, max_points: int | None = None):
+    """Simulate a scan of the scene from a world pose: points in the
+    sensor frame, range-gated, at most `max_points`, with additive noise."""
+    Tinv = np.linalg.inv(pose.astype(np.float64))
+    local = scene_xyz @ Tinv[:3, :3].T + Tinv[:3, 3]
+    r = np.linalg.norm(local, axis=-1)
+    keep = r < max_range
+    local, lab = local[keep], scene_lab[keep]
+    if max_points is not None and len(local) > max_points:
+        sel = rng.permutation(len(local))[:max_points]
+        local, lab = local[sel], lab[sel]
+    local = local + rng.normal(size=local.shape) * noise
+    return local.astype(np.float32), lab.astype(np.int32)

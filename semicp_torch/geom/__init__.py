@@ -12,4 +12,5 @@ from semicp_torch.geom.se3 import (  # noqa: F401
     rotmat_to_quat,
     quat_to_rotmat,
 )
+from semicp_torch.geom.eig3 import eigh3x3, cholesky3x3, cho_solve3x3  # noqa: F401
 from semicp_torch.geom import sym3  # noqa: F401

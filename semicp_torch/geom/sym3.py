@@ -16,6 +16,12 @@ import torch
 XX, YY, ZZ, XY, XZ, YZ = range(6)
 
 
+def from_matrix(M):
+    """(...,3,3) symmetric -> 6-tuple of (...,) planes."""
+    return (M[..., 0, 0], M[..., 1, 1], M[..., 2, 2],
+            M[..., 0, 1], M[..., 0, 2], M[..., 1, 2])
+
+
 def to_matrix(c):
     """6-tuple -> (...,3,3)."""
     xx, yy, zz, xy, xz, yz = c

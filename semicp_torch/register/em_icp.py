@@ -187,6 +187,102 @@ def make_align_fn(cfg: Config):
     return fn
 
 
+def _to_host(res: AlignResult, src: Cloud, tgt: Cloud):
+    """The whole result, and min(|src|, |tgt|), in one device-to-host copy.
+
+    Returns (host AlignResult, n_expect); every field equals the device
+    one to the bit (the iteration count is a small integer, exact in f32).
+    """
+    n_expect = torch.minimum(src.count, tgt.count).to(torch.float32)
+    flat = torch.cat([res.T.reshape(16), res.H.reshape(36), torch.stack([
+        res.iterations.to(torch.float32), res.converged.to(torch.float32),
+        res.cost, res.n_corr, n_expect])]).cpu()
+    host = AlignResult(T=flat[:16].reshape(4, 4), iterations=flat[52].to(torch.int32),
+                       converged=flat[53] > 0.5, cost=flat[54], n_corr=flat[55],
+                       H=flat[16:52].reshape(6, 6))
+    return host, float(flat[56])
+
+
+def _healthy(host: AlignResult, n_expect: float, frac: float) -> bool:
+    return bool(host.converged) and float(host.n_corr) >= frac * n_expect
+
+
+def make_robust_align_fn(cfg: Config):
+    """align fn with a host-side recovery retry (the odometry/SLAM drivers).
+
+    A constant-velocity warm start occasionally lands EM in a wrong local
+    minimum, which keeps far fewer gated correspondences than the clouds'
+    overlap supports. If the warm-started solve does not converge or its
+    correspondence count drops below `em.retry_overlap_frac` of
+    min(|src|, |tgt|), re-solve from identity and keep whichever solution
+    retains more correspondences. The health check is one device-to-host
+    copy (`_to_host`); a retry costs one more solve. The result stays on
+    the device.
+    """
+    base = make_align_fn(cfg)
+    frac = cfg.em.retry_overlap_frac
+
+    def fn(src: Cloud, tgt: Cloud, T0=None, gate=None, max_iters=None) -> AlignResult:
+        res = base(src, tgt, T0, gate=gate, max_iters=max_iters)
+        if frac <= 0.0 or T0 is None:
+            return res
+        host, n_expect = _to_host(res, src, tgt)
+        if _healthy(host, n_expect, frac):
+            return res
+        res2 = base(src, tgt, None, gate=gate, max_iters=max_iters)
+        return res2 if float(res2.n_corr) > float(host.n_corr) else res
+
+    return fn
+
+
+class PipelinedAligner:
+    """Odometry aligner with a deferred health check.
+
+    The warm start chains on the device: submit(t+1) passes align(t)'s
+    result pose, never read by the host, as T0. Frame t's result is
+    fetched only after align(t+1) has been queued, in one device-to-host
+    copy that carries its health check and its whole record; the resolved
+    result returned is that host copy.
+
+    Retry semantics on an unhealthy frame match make_robust_align_fn
+    (re-solve from identity, keep the solution with more gated
+    correspondences). The next frame's align has already consumed the
+    pre-retry warm start by design; if that basin was bad, its own
+    health check catches it one frame late. On healthy sequences the
+    resolved trajectory is bit-identical to the serial robust chain.
+
+    Usage: `resolved = submit(src, tgt)` returns the PREVIOUS pair's
+    resolved AlignResult (None for the first); `flush()` resolves the
+    final in-flight pair.
+    """
+
+    def __init__(self, cfg: Config):
+        self._base = make_align_fn(cfg)
+        self._frac = cfg.em.retry_overlap_frac
+        self._pending = None          # (src, tgt, T0, res) awaiting health
+        self._warm = None             # device-side warm-start pose chain
+
+    def submit(self, src: Cloud, tgt: Cloud):
+        T0 = self._warm
+        res = self._base(src, tgt, T0)
+        self._warm = res.T            # stays on the device
+        prev, self._pending = self._pending, (src, tgt, T0, res)
+        return self._resolve(*prev) if prev is not None else None
+
+    def flush(self):
+        if self._pending is None:
+            return None
+        prev, self._pending = self._pending, None
+        return self._resolve(*prev)
+
+    def _resolve(self, src, tgt, T0, res) -> AlignResult:
+        host, n_expect = _to_host(res, src, tgt)
+        if self._frac <= 0.0 or T0 is None or _healthy(host, n_expect, self._frac):
+            return host
+        host2 = _to_host(self._base(src, tgt, None), src, tgt)[0]
+        return host2 if float(host2.n_corr) > float(host.n_corr) else host
+
+
 def align(src: Cloud, tgt: Cloud, cfg: Config | None = None, T_init=None) -> AlignResult:
     """Align source onto target: returns T with x_tgt ~= T @ x_src.
 

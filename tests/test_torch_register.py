@@ -253,7 +253,9 @@ def test_config_round_trip_from_jax():
 
 def test_import_pulls_in_neither_jax_nor_semicp():
     code = ("import sys, semicp_torch, semicp_torch.convert, semicp_torch.data, "
-            "semicp_torch.kernels; "
+            "semicp_torch.kernels, semicp_torch.cli.run_odometry, semicp_torch.cli.run_pair, "
+            "semicp_torch.register.ndt, semicp_torch.eval, semicp_torch.utils, "
+            "semicp_torch.slam.pipeline, semicp_torch.data.native; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'semicp')); "
             "print(bad); sys.exit(1 if bad else 0)")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
