@@ -8,13 +8,19 @@ Phases (any failure raises and exits non-zero):
 2. build the hand-written CUDA kernels from semicp_torch/csrc;
 3. each kernel against its plain PyTorch version on the card: K1, K2, K3
    and K6 at the main path's shapes (the bench scene: 131072-point clouds,
-   20 classes), K5 at n_pad 32768 and 2048, K4 at n_pad 2048; then K2
-   against K4 at n_pad 2048 to 32768 (the dense/sparse crossover);
+   20 classes), K5 at n_pad 32768 and 2048, K4 at n_pad 2048; each with
+   its wrapper's time, its kernels' device time alone (torch.profiler),
+   its bound on the card and the share of it reached, and for the
+   data-dependent walks (K1, K2) the pairs walked, held equal to the plain
+   mirror of their culling; K1 and K2 again with 1% of the target's labels
+   past the classes; then K2 against K4 at n_pad 2048 to 32768 (the
+   dense/sparse crossover);
 4. the main path at full size: a 120k-point, 20-class scan pair through
    make_cloud -> preprocess_cloud -> make_align_fn(cfg)(src, tgt), with
    the kernel launch counts of that run, the ground-truth error, the
-   steady-state time per scan (preprocess of the source plus align) and
-   the host syncs of one scan (only the EM convergence flag may sync);
+   steady-state time per scan (preprocess of the source plus align), and
+   the host syncs and kernel launches of one steady scan (only the EM
+   convergence flag may sync);
 5. the same slice at n_pad=4096, on the card against the CPU;
 6. the small-cloud raw-layout path: a 20-class pair at n_pad 2048 through
    preprocess_cloud(c, cfg.cov) (K5) and the dense engine (K4, K3), with
@@ -61,14 +67,18 @@ from semicp_torch import kernels
 from semicp_torch.cloud.covariance import estimate_radius
 from semicp_torch.cloud.moments import (
     moments_plain,
+    moments_walked_chunks,
     neighborhood_moments_dense,
     neighborhood_moments_sparse,
 )
+from semicp_torch.corr.layout import CHUNK
 from semicp_torch.corr.nn_dense import class_nn_attrs_dense, sort_cloud_by_class
 from semicp_torch.corr.nn_sparse import (
     class_nn_attrs_plain,
     class_nn_attrs_sparse,
+    nn_walked_chunks,
     prepare_sparse,
+    query_candidates,
 )
 from semicp_torch.cli import run_odometry
 from semicp_torch.data import (
@@ -106,6 +116,24 @@ SMALL_FRAMES, SMALL_SCENE, SMALL_SEQ_EXTENT, SMALL_RANGE = 6, 8000, 10.0, 8.0
 CORRIDOR_POINTS, CORRIDOR_PAD = 1200, 4096
 # the E-step's tolerances, (rtol, atol) per output (tests/test_pallas.py)
 ESTEP_TOLS = {"a6": (3e-3, 2e-3), "b3": (3e-3, 5e-3), "c": (3e-3, 5e-3), "wsum": (0.0, 1e-5)}
+# the H100 SXM's published peaks (NVIDIA data sheet): f32 outside the tensor
+# cores, and HBM3 bandwidth; the bounds below are against these
+PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
+# flops of the work each function needs, counted from the kernels' inner
+# loops: an NN pair's fmaf chain and compare (over the pairs the exact
+# per-warp culling keeps, the fewest any of the NN kernels walks); a dense
+# moments pair's differences, squared distance and compares (K5 tests all
+# valid pairs); a neighbour's distance and its ten sums (K1 needs no more
+# than the pairs within the radius); K3's per-class Cholesky, Mahalanobis,
+# softmax and planes
+FLOP_NN_PAIR, FLOP_MOM_PAIR, FLOP_MOM_NEIGHBOUR, FLOP_ESTEP_CLASS = 7, 10, 24, 120
+# each C entry's own device kernels, for the time of the launch alone
+DEVICE_KERNELS = {
+    "moments_sparse": ("moments_prep_kernel", "moments_tiles_kernel", "moments_cost_kernel",
+                       "moments_walk_kernel"),
+    "nn_sparse": ("nn_items_kernel", "nn_walk_kernel", "nn_gather_kernel"),
+    "estep_reduce": ("estep_reduce_kernel",), "moments_dense": ("moments_dense_kernel",),
+    "nn_dense": ("nn_dense_kernel",), "estep_fused": ("estep_fused_kernel",)}
 
 
 def card_line() -> str:
@@ -126,6 +154,46 @@ def cuda_ms(fn, reps: int) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def kernel_ms(name, fn, reps: int) -> float:
+    """Device time of the entry's own kernels per call of fn (the launch
+    alone, without the wrapper's torch work), from torch.profiler."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = dict.fromkeys(DEVICE_KERNELS[name], 0.0)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for k in split:
+                if k in e.name:
+                    split[k] += e.time_range.elapsed_us() / 1e3 / reps
+    total = sum(split.values())
+    assert total > 0, f"torch.profiler recorded no device time for {DEVICE_KERNELS[name]}"
+    if len(split) > 1:
+        print(f"{name}: device ms per call by kernel {split}")
+    return total
+
+
+def kernel_entry(name, source, replaces, max_abs, ms, k_ms, plain_ms, flops, nbytes,
+                 walked=None):
+    """One entry of the kernels line: times, the bound (the larger of the
+    flops at the f32 peak and the bytes at the HBM rate, each input read
+    once and each output written once) and its share of the kernel time."""
+    t_ops, t_bytes = 1e3 * flops / PEAK_F32, 1e3 * nbytes / PEAK_BYTES
+    bound = max(t_ops, t_bytes)
+    entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+             "max_abs_err": max_abs, "ms": ms, "kernel_ms": k_ms, "plain_ms": plain_ms,
+             "bound_ms": bound, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+             "share": bound / k_ms, "walked_pairs": walked, "library_ms": None}
+    print(f"{name}: wrapper {ms:.4f} ms, kernel alone {k_ms:.4f} ms, plain {plain_ms:.3f} ms; "
+          f"bound {bound:.4f} ms by {entry['bound_by']} ({flops:.3e} flop, {nbytes:.3e} B), "
+          f"share {entry['share']:.3f}; walked pairs {walked}")
+    return entry
 
 
 def host_syncs(fn):
@@ -169,9 +237,10 @@ def bench_pair(n_points, extent, n_classes):
     return src, slab, xyz, lab, T_gt
 
 
-def compare_moments(tag, kernel, xyz, label, valid, r, count):
+def compare_moments(tag, kernel, xyz, label, valid, r, count, timed=True):
     """A moments kernel against moments_plain at the covariance level, all
-    points. Returns (max_abs_err, kernel ms, plain ms)."""
+    points. Returns (max_abs_err, kernel ms, plain ms, the neighbour pairs
+    within the radius); the times are None unless `timed`."""
     m_k = kernel()
     # reference: the plain version in float64 (exact up to the radius
     # test); the f32 plain is what is timed
@@ -185,36 +254,47 @@ def compare_moments(tag, kernel, xyz, label, valid, r, count):
     atol, rtol = 1e-5, 1e-3
     worst = float(torch.max(err / (atol + rtol * torch.abs(cr))))
     max_abs = float(torch.max(err))
-    ms = cuda_ms(kernel, 20)
-    plain_ms = cuda_ms(lambda: moments_plain(xyz, label, valid, r), 2)
+    ms = cuda_ms(kernel, 20) if timed else None
+    plain_ms = cuda_ms(lambda: moments_plain(xyz, label, valid, r), 2) if timed else None
     print(f"{tag}: radius {float(r):.4f} m, cov max_abs_err {max_abs:.3e} "
           f"(tol atol {atol} + rtol {rtol}; worst ratio {worst:.3f}); counts differ at "
           f"{n_cnt_diff} of {count} points (max |diff| {max_cnt_diff:.0f}, tol <= 1 "
-          f"at <= 1e-4 of the points); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+          f"at <= 1e-4 of the points); kernel {ms} ms, plain {plain_ms} ms")
     assert worst <= 1.0, f"{tag}: covariances disagree with the plain version"
     assert max_cnt_diff <= 1.0 and n_cnt_diff <= 1e-4 * count, f"{tag}: counts disagree"
-    return max_abs, ms, plain_ms
+    return max_abs, ms, plain_ms, int(cnt_r.sum())
 
 
 def check_k1(tgt, cfg, results):
-    """K1 against moments_plain at the covariance level, all points."""
+    """K1 against moments_plain at the covariance level, all points; its
+    walk's chunk count against the plain mirror of its culling."""
     label = torch.clamp(tgt.label, min=0)
     r = estimate_radius(tgt.xyz, label, tgt.valid, k=cfg.cov.k)
     K = cfg.cloud.num_classes
-    max_abs, ms, plain_ms = compare_moments(
-        "K1 moments_sparse",
-        lambda: neighborhood_moments_sparse(tgt.xyz, label, tgt.valid, r, K),
-        tgt.xyz, label, tgt.valid, r, int(tgt.count))
-    results.append({"name": "moments_sparse", "route": "cuda",
-                    "source": "semicp_torch/csrc/moments.cu",
-                    "replaces": "semicp/cloud/pallas_cov.py:210",
-                    "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms})
+    n = tgt.n_pad
+
+    def k1():
+        return neighborhood_moments_sparse(tgt.xyz, label, tgt.valid, r, K)
+
+    max_abs, ms, plain_ms, near = compare_moments("K1 moments_sparse", k1, tgt.xyz, label,
+                                                  tgt.valid, r, int(tgt.count))
+    k1()
+    walked = int(kernels.WALKED["moments_sparse"].sum()) * CHUNK * CHUNK
+    mirror = int(moments_walked_chunks(tgt.xyz, label, tgt.valid, r, K).sum()) * CHUNK * CHUNK
+    print(f"K1 moments_sparse: walked {walked} pairs, the plain mirror of its culling {mirror}; "
+          f"{near} neighbour pairs within the radius")
+    assert walked == mirror, "K1's walk differs from the plain mirror of its culling"
+    results.append(kernel_entry(
+        "moments_sparse", "semicp_torch/csrc/moments.cu", "semicp/cloud/pallas_cov.py:210",
+        max_abs, ms, kernel_ms("moments_sparse", k1, 20), plain_ms,
+        FLOP_MOM_NEIGHBOUR * near, 17 * n + 40 * n, walked))
 
 
 def check_k5(cfg, dev, results):
     """K5 against moments_plain at the covariance level, all points of a
     raw-layout cloud: at run_batch's capacity, then at the small path's.
-    The JSON line carries the larger shape's times."""
+    The JSON line carries the larger shape's times and bound (all pairs
+    of valid points are tested)."""
     errs, times = [], None
     for n_points, n_pad, extent in ((BATCH_POINTS, BATCH_PAD, BATCH_EXTENT),
                                     (SMALL_POINTS, SMALL_PAD, SMALL_EXTENT)):
@@ -223,16 +303,17 @@ def check_k5(cfg, dev, results):
         c = semicp_torch.make_cloud(xyz, lab - 1, n_pad=n_pad, device=dev)
         label = torch.clamp(c.label, min=0)
         r = estimate_radius(c.xyz, label, c.valid, k=cfg.cov.k)
-        max_abs, ms, plain_ms = compare_moments(
+        max_abs, ms, plain_ms, _ = compare_moments(
             f"K5 moments_dense at n_pad {n_pad}",
             lambda: neighborhood_moments_dense(c.xyz, label, c.valid, r),
             c.xyz, label, c.valid, r, int(c.count))
         errs.append(max_abs)
-        times = times or (ms, plain_ms)
-    results.append({"name": "moments_dense", "route": "cuda",
-                    "source": "semicp_torch/csrc/moments_dense.cu",
-                    "replaces": "semicp/cloud/pallas_cov.py:75",
-                    "max_abs_err": max(errs), "ms": times[0], "plain_ms": times[1]})
+        if times is None:
+            k_ms = kernel_ms("moments_dense",
+                             lambda: neighborhood_moments_dense(c.xyz, label, c.valid, r), 20)
+            times = (ms, k_ms, plain_ms, FLOP_MOM_PAIR * int(c.count) ** 2, 57 * n_pad)
+    results.append(kernel_entry("moments_dense", "semicp_torch/csrc/moments_dense.cu",
+                                "semicp/cloud/pallas_cov.py:75", max(errs), *times))
 
 
 def compare_nn(tag, d2_k, at_k, d2_p, at_p, q, sel):
@@ -281,32 +362,54 @@ def host_ms(fn):
     return out, 1e3 * (time.perf_counter() - t0)
 
 
+def estep_cost(d2, q, K, gate):
+    """(flops, bytes) of one E-step reduce (K3) on these NN outputs: every
+    class's d2 is read; the winner's xyz where one was found, its
+    covariance and log-prior where it lies within the gate."""
+    found = int((d2 < 1e30).sum())
+    gated = int((d2 <= gate * gate).sum())
+    nbytes = 4 * K * q + 12 * found + 28 * gated + (24 + 12 + 1 + 44) * q
+    return FLOP_ESTEP_CLASS * gated + 8 * found, nbytes, found
+
+
 def check_k2_k3(src, tgt, cfg, results):
     """K2 against class_nn_attrs_plain within the gate, then K3 against
-    estep_reduce_plain, both on all points of the first E-step (T = I)."""
+    estep_reduce_plain, both on all points of the first E-step (T = I).
+    K2's walked chunks are held equal to the plain mirror of its culling."""
     K = cfg.cloud.num_classes
     gate = cfg.corr.max_dist
     prep = prepare_sparse(tgt, K, cfg.corr.cell)
     q, qv = src.xyz, src.valid
     tv = prep["label_s"] < K
+    n, nq = tgt.n_pad, q.shape[1]
 
-    d2_k, at_k = class_nn_attrs_sparse(prep, q, qv, K, gate)
+    def k2():
+        return class_nn_attrs_sparse(prep, q, qv, K, gate)
+
+    d2_k, at_k = k2()
+    walked = int(kernels.WALKED["nn_sparse"]) * CHUNK * CHUNK
     (d2_p, at_p), plain_ms = host_ms(lambda: class_nn_attrs_plain(
         prep["xyz_s"], prep["label_s"], tv, prep["attrs16"][3:9], q, K))
-    ms = cuda_ms(lambda: class_nn_attrs_sparse(prep, q, qv, K, gate), 20)
+    ms = cuda_ms(k2, 20)
 
     inside = (d2_p <= gate * gate * (1.0 - 1e-5)) & qv[None, :]
     max_abs, rtol, atol = compare_nn(f"K2 nn_sparse (within the {gate} m gate)",
                                      d2_k, at_k, d2_p, at_p, q, inside)
     outside = ~inside & qv[None, :]
     ok_out = bool(torch.all(d2_k[outside] >= d2_p[outside] * (1 - rtol) - atol))
-    print(f"K2 nn_sparse: beyond-gate never closer: {ok_out}; kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms")
+    mirror = int(nn_walked_chunks(prep, q, qv, gate).sum()) * CHUNK * CHUNK
+    _, count, tb = query_candidates(prep, q, qv, gate, "chip_smoke")
+    first = int(count.sum()) * 256 * tb
+    print(f"K2 nn_sparse: beyond-gate never closer: {ok_out}; walked {walked} pairs, the plain "
+          f"mirror of its culling {mirror}, the first port's tile lists {first}")
     assert ok_out, "K2 reports a neighbour closer than the plain minimum"
-    results.append({"name": "nn_sparse", "route": "cuda",
-                    "source": "semicp_torch/csrc/nn_sparse.cu",
-                    "replaces": "semicp/corr/pallas_nn2.py:545",
-                    "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms})
+    assert walked == mirror, "K2's walk differs from the plain mirror of its culling"
+    found = int((d2_k < 1e30).sum())
+    nbytes = 20 * n + 13 * nq + 36 * found + 4 * K * nq + 64 * K * nq
+    results.append(kernel_entry(
+        "nn_sparse", "semicp_torch/csrc/nn_sparse.cu", "semicp/corr/pallas_nn2.py:545",
+        max_abs, ms, kernel_ms("nn_sparse", k2, 20), plain_ms, FLOP_NN_PAIR * mirror, nbytes,
+        walked))
 
     log_sem = _log_sem(src, cfg)
     gate2 = torch.tensor(gate * gate, device=q.device)
@@ -314,11 +417,48 @@ def check_k2_k3(src, tgt, cfg, results):
     max_abs = compare_estep("K3 estep_reduce", estep_reduce(*args), estep_reduce_plain(*args))
     ms = cuda_ms(lambda: estep_reduce(*args), 50)
     plain_ms = cuda_ms(lambda: estep_reduce_plain(*args), 5)
-    print(f"K3 estep_reduce: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    results.append({"name": "estep_reduce", "route": "cuda",
-                    "source": "semicp_torch/csrc/estep.cu",
-                    "replaces": "semicp/register/pallas_estep.py:135",
-                    "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms})
+    flops, nbytes, _ = estep_cost(d2_k, nq, K, gate)
+    results.append(kernel_entry(
+        "estep_reduce", "semicp_torch/csrc/estep.cu", "semicp/register/pallas_estep.py:135",
+        max_abs, ms, kernel_ms("estep_reduce", lambda: estep_reduce(*args), 50), plain_ms,
+        flops, nbytes))
+
+
+def check_past_labels(src, tgt, cfg):
+    """K1 and K2 against their plain versions on the bench target with the
+    labels of 1% of its points, at one end of the scene, set past the
+    classes (K to K + 2): the plain NN ignores such targets, the plain
+    moments match them label to label. Each walk is held to the plain
+    mirror of its culling, as above."""
+    K, gate = cfg.cloud.num_classes, cfg.corr.max_dist
+    x = tgt.xyz[0]
+    far = tgt.valid & (x > torch.quantile(x[tgt.valid], 0.99))
+    label = torch.clamp(tgt.label, min=0)
+    r = estimate_radius(tgt.xyz, label, tgt.valid, k=cfg.cov.k)
+    ids = torch.arange(tgt.n_pad, device=x.device, dtype=label.dtype)
+    label = torch.where(far, K + ids % 3, label)
+    tag = f"{int(far.sum())} target labels past the classes"
+    compare_moments(f"K1 moments_sparse ({tag})",
+                    lambda: neighborhood_moments_sparse(tgt.xyz, label, tgt.valid, r, K),
+                    tgt.xyz, label, tgt.valid, r, int(tgt.count), timed=False)
+    walked = int(kernels.WALKED["moments_sparse"].sum())
+    assert walked == int(moments_walked_chunks(tgt.xyz, label, tgt.valid, r, K).sum()), \
+        "K1's walk differs from the plain mirror of its culling"
+
+    prep = prepare_sparse(tgt.replace(label=label), K, cfg.corr.cell)
+    q, qv = src.xyz, src.valid
+    d2_k, at_k = class_nn_attrs_sparse(prep, q, qv, K, gate)
+    walked = int(kernels.WALKED["nn_sparse"])
+    d2_p, at_p = class_nn_attrs_plain(tgt.xyz, label, tgt.valid, tgt.cov6, q, K)
+    inside = (d2_p <= gate * gate * (1.0 - 1e-5)) & qv[None, :]
+    _, rtol, atol = compare_nn(f"K2 nn_sparse ({tag}, within the gate)",
+                               d2_k, at_k, d2_p, at_p, q, inside)
+    outside = ~inside & qv[None, :]
+    assert bool(torch.all(d2_k[outside] >= d2_p[outside] * (1 - rtol) - atol)), \
+        "K2 reports a neighbour closer than the plain minimum"
+    assert walked == int(nn_walked_chunks(prep, q, qv, gate).sum()), \
+        "K2's walk differs from the plain mirror of its culling"
+    print(f"K1, K2 with {tag}: both hold the plain versions; walks equal the mirrors")
 
 
 def check_k6(src, tgt, cfg, results):
@@ -356,11 +496,20 @@ def check_k6(src, tgt, cfg, results):
     max_abs = max(max_abs, compare_estep("K6 estep_fused against K2 then K3 (bench shape, "
                                          "all points)", out_k, out_s))
     ms = cuda_ms(lambda: estep_sparse_fused(*args), 20)
-    print(f"K6 estep_fused: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    results.append({"name": "estep_fused", "route": "cuda",
-                    "source": "semicp_torch/csrc/estep_fused.cu",
-                    "replaces": "semicp/register/pallas_fused.py:230",
-                    "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms})
+    # the NN work the function needs is the pairs the exact per-warp
+    # culling keeps (K2's); K6 itself walks the first port's candidate
+    # tiles in full, 256 x tb pairs a tile, a count derived here from the
+    # tile lists and not read from the kernel
+    need = int(nn_walked_chunks(prep, q, qv, gate).sum()) * CHUNK * CHUNK
+    _, count, tb = query_candidates(prep, q, qv, gate, "chip_smoke")
+    print(f"K6 estep_fused: its tile lists hold {int(count.sum()) * 256 * tb} pairs (derived), "
+          f"the per-warp culling keeps {need}")
+    flops, nbytes, found = estep_cost(d2_s, q.shape[1], K, gate)
+    nbytes += 20 * tgt.n_pad + 36 * found + 4 * K * q.shape[1]   # the walk and the log-prior
+    results.append(kernel_entry(
+        "estep_fused", "semicp_torch/csrc/estep_fused.cu", "semicp/register/pallas_fused.py:230",
+        max_abs, ms, kernel_ms("estep_fused", lambda: estep_sparse_fused(*args), 20), plain_ms,
+        flops + FLOP_NN_PAIR * need, nbytes))
 
 
 def small_pair(n_points, n_pad, extent, cfg, dev, cov_only):
@@ -385,14 +534,19 @@ def check_k4(cfg, dev, results):
     assert torch.equal(found, d2_k < 1e30), "K4 found masks differ from the plain version"
     max_abs, _, _ = compare_nn(f"K4 nn_dense (n_pad {SMALL_PAD}, all valid points)",
                                d2_k, at_k, d2_p, at_p, q, found & src.valid[None, :])
-    ms = cuda_ms(lambda: class_nn_attrs_dense(xyz_s, label_s, attrs16, q, K), 50)
+    def k4():
+        return class_nn_attrs_dense(xyz_s, label_s, attrs16, q, K)
+
+    ms = cuda_ms(k4, 50)
     plain_ms = cuda_ms(lambda: class_nn_attrs_plain(xyz_s, label_s, label_s < K,
                                                     attrs16[3:9], q, K), 5)
-    print(f"K4 nn_dense: found masks equal; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    results.append({"name": "nn_dense", "route": "cuda",
-                    "source": "semicp_torch/csrc/nn_dense.cu",
-                    "replaces": "semicp/corr/pallas_nn2.py:92",
-                    "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms})
+    n, nq = xyz_s.shape[1], q.shape[1]
+    nbytes = 16 * n + 12 * nq + 36 * int(found.sum()) + 68 * K * nq
+    print("K4 nn_dense: found masks equal")
+    results.append(kernel_entry("nn_dense", "semicp_torch/csrc/nn_dense.cu",
+                                "semicp/corr/pallas_nn2.py:92", max_abs, ms,
+                                kernel_ms("nn_dense", k4, 50), plain_ms,
+                                FLOP_NN_PAIR * int(tgt.count) * int(src.count), nbytes))
 
 
 def crossover(dev):
@@ -786,6 +940,7 @@ def main() -> None:
         semicp_torch.make_cloud(tgt_pts, tgt_lab, n_pad=N_PAD, device=dev), cfg)
     check_k1(tgt, cfg, results)
     check_k2_k3(src, tgt, cfg, results)
+    check_past_labels(src, tgt, cfg)
     check_k6(src, tgt, cfg, results)
     check_k5(cfg, dev, results)
     check_k4(cfg, dev, results)
@@ -827,10 +982,14 @@ def main() -> None:
     ms_scan = 1e3 * (time.perf_counter() - t0) / REPEATS
     print(f"phase 4: steady state {ms_scan:.2f} ms per scan (preprocess source + align, "
           f"{REPEATS} repeats, {int(res.iterations)} EM iterations) on {card}")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
     res, sites = host_syncs(lambda: align_fn(semicp_torch.preprocess_cloud(raw_src, cfg), tgt))
+    per_scan = dict(kernels.LAUNCHES)
     n_sync, iters = sum(sites.values()), int(res.iterations)
     print(f"phase 4: host syncs in one scan: {n_sync} ({dict(sites)}), "
-          f"{iters} EM iterations (one convergence-flag read each)")
+          f"{iters} EM iterations (one convergence-flag read each); kernel launches of that "
+          f"scan {per_scan}")
     assert n_sync == iters, "a host sync crept into the scan beyond the EM flag"
 
     # phase 5: n_pad=4096, card against CPU
@@ -868,6 +1027,7 @@ def main() -> None:
             "nn_dense": odo_small, "moments_dense": small, "estep_fused": big}
     for r in results:
         r["launches"] = path[r["name"]][r["name"]]
+        r["launches_per_bench_scan"] = per_scan[r["name"]]
 
     print(json.dumps({"kernels": results}))
     print(card)

@@ -12,7 +12,8 @@ compare one to one with the JAX package's:
 
 `layout` is "raw" or "cm" (class-major + Morton-within-class, invalid
 last — see corr/layout.py). All tensors of a cloud live on one device,
-chosen at `make_cloud`; everything downstream follows it.
+chosen at `make_cloud` (the card unless the caller asks for the CPU);
+everything downstream follows it.
 """
 
 from __future__ import annotations
@@ -59,8 +60,11 @@ def pad_to(arr: np.ndarray, n_pad: int, fill) -> np.ndarray:
 
 
 def make_cloud(xyz: np.ndarray, label: np.ndarray | None = None,
-               n_pad: int | None = None, device="cpu") -> Cloud:
-    """Build a padded Cloud on `device` from host (N,3)/(N,) numpy arrays."""
+               n_pad: int | None = None, device="cuda") -> Cloud:
+    """Build a padded Cloud on `device` from host (N,3)/(N,) numpy arrays.
+
+    The card is the default: pass device="cpu" to build a cloud on the CPU
+    (without a card the default raises; nothing falls back)."""
     xyz = np.asarray(xyz, np.float32)
     n = xyz.shape[0]
     if label is None:

@@ -9,10 +9,14 @@ covariance follows in cloud/covariance.py's epilogue.
   `neighborhood_moments_xla`), chunked over queries: raw, uncentred
   moments. It is the CPU path and the kernel's reference.
 * `neighborhood_moments_sparse` launches K1 (csrc/moments.cu) over a
-  class-major Morton sorted cloud, walking each query tile's same-class
-  candidate tiles within the radius. Its moments are centred on each
-  query point: equal covariances through the epilogue, not equal raw
-  moments.
+  class-major Morton sorted cloud: each 32-point chunk's warp walks the
+  same-class chunks its culling keeps within the radius. Its moments are
+  centred on each query point: equal covariances through the epilogue,
+  not equal raw moments. Labels past the classes (>= K) keep the plain
+  version's meaning: equal labels are neighbours.
+* `moments_walked_chunks` is the plain mirror of K1's culling, the
+  (query chunk, target chunk) pairs it walks, for the tests and for
+  `chip_smoke.py`'s check of the kernel's count.
 * `neighborhood_moments_dense` is the raw-layout path (a bare CovConfig,
   or class_aware=False): plain on the CPU, kernel K5 (csrc/moments_dense.cu)
   over all pairs on CUDA. Like K1's, its moments are centred on each
@@ -24,11 +28,9 @@ from __future__ import annotations
 import torch
 
 from semicp_torch import kernels
-from semicp_torch.corr.layout import tile_candidates, tile_meta
+from semicp_torch.corr.layout import CHUNK, cull_chunks, limit2, pack_boxes, tile_meta
 
 NMOM = 10
-QB = 256   # query tile of the kernel (csrc/common.cuh kQB)
-TB = 512   # target tile
 
 
 def moments_plain(xyz, label, valid, radius, qb: int = 512):
@@ -61,29 +63,87 @@ def neighborhood_moments_sparse(xyz, label, valid, radius, num_classes: int):
     """
     if not xyz.is_cuda:
         return moments_plain(xyz, label, valid, radius)
+    dev = xyz.device
     n = xyz.shape[1]
-    tb = min(TB, n)
-    if n % QB or n % tb or tb % QB:
-        raise ValueError(f"moments_sparse: N={n} must be a multiple of the query "
-                         f"tile {QB} and of the target tile tb={tb} (itself a multiple of {QB})")
-    label = label.to(torch.int32)
-    qmeta = tile_meta(xyz, label, valid, num_classes, QB)
-    tmeta = tile_meta(xyz, label, valid, num_classes, tb)
-    rad = kernels.device_scalar(radius, torch.float32, xyz.device)
-    cand, count = tile_candidates(qmeta["lo"], qmeta["hi"], tmeta["lo"], tmeta["hi"], rad[0],
-                                  q_range=(qmeta["cmin"], qmeta["cmax"]),
-                                  t_range=(tmeta["cmin"], tmeta["cmax"]))
-    tlab = torch.where(valid, label, torch.full_like(label, -1)).contiguous()
-    qlab = torch.where(valid, label, torch.full_like(label, -2)).contiguous()
-    xyz = xyz.contiguous()
+    if n % CHUNK:
+        raise ValueError(f"moments_sparse: N={n} must be a multiple of the chunk {CHUNK}")
+    nc = n // CHUNK
+    xyz, label, valid = xyz.contiguous(), label.to(torch.int32).contiguous(), valid.contiguous()
     kernels.check(xyz, "xyz", torch.float32, (3, n))
-    kernels.check(cand, "cand", torch.int32, (n // QB, n // tb))
-    kernels.check(count, "count", torch.int32, (n // QB,))
-    out = torch.empty((NMOM, n), dtype=torch.float32, device=xyz.device)
-    kernels.launch("semicp_moments_sparse", "moments_sparse", xyz.device,
-                   xyz.data_ptr(), tlab.data_ptr(), qlab.data_ptr(), cand.data_ptr(),
-                   count.data_ptr(), rad.data_ptr(), n, cand.shape[1], tb, out.data_ptr())
+    kernels.check(label, "label", torch.int32, (n,))
+    kernels.check(valid, "valid", torch.bool, (n,))
+    rad = kernels.device_scalar(radius, torch.float32, dev)
+
+    def empty(shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    pts4, box, span = empty((n, 4), torch.float32), empty((nc, 8), torch.float32), empty((nc, 2))
+    tiles = empty(((nc + CHUNK - 1) // CHUNK, 8), torch.float32)     # boxes of 32 chunks
+    count = empty((nc,))
+    # the metadata and cost pass (not counted), then the walk, heaviest warps first
+    kernels.launch("semicp_moments_cost", None, dev, xyz.data_ptr(), label.data_ptr(),
+                   valid.data_ptr(), rad.data_ptr(), n, num_classes, pts4.data_ptr(),
+                   box.data_ptr(), tiles.data_ptr(), span.data_ptr(),
+                   empty((2 * (num_classes + 1),)).data_ptr(), count.data_ptr())
+    order = torch.argsort(count, descending=True).to(torch.int32)
+    out = empty((NMOM, n), torch.float32)
+    kernels.launch("semicp_moments_sparse", "moments_sparse", dev, pts4.data_ptr(),
+                   box.data_ptr(), tiles.data_ptr(), span.data_ptr(), order.data_ptr(),
+                   rad.data_ptr(), n, num_classes, empty((1,)).data_ptr(), out.data_ptr())
+    kernels.WALKED["moments_sparse"] = count
     return out
+
+
+def chunk_inputs(xyz, label, valid, num_classes: int) -> dict:
+    """K1's per-call metadata in plain torch, as its kernels build it on the
+    device: the packed points (N, 4) (x, y, z, the label's int32 bits, -1
+    where invalid), each point's bucket (min(label, K), -1 where invalid:
+    every label past the classes shares bucket K), the chunk boxes (N/32, 8)
+    with bucket ranges, and each chunk's span, the first and last chunk
+    holding a bucket of its range (first > last for an empty chunk). The
+    span is exact in any layout; the class-major one makes it short."""
+    n = xyz.shape[1]
+    if n % CHUNK:
+        raise ValueError(f"moments_sparse: N={n} must be a multiple of the chunk {CHUNK}")
+    nc, nb = n // CHUNK, num_classes + 1
+    label = torch.clamp(label.to(torch.int32), min=0)        # as tile_meta reads it
+    lab = torch.where(valid, label, torch.full_like(label, -1))
+    bucket = torch.where(valid, torch.clamp(label, max=num_classes), torch.full_like(label, -1))
+    meta = tile_meta(xyz, bucket, valid, nb, CHUNK)          # an empty chunk: cmin = K + 1
+    pts4 = torch.cat([xyz, lab.view(torch.float32)[None]], dim=0).T.contiguous()
+    chunk = torch.arange(n, device=xyz.device) // CHUNK
+    slot = torch.where(valid, bucket, torch.full_like(bucket, nb)).long()
+    first = torch.full((nb + 1,), nc, dtype=torch.int64, device=xyz.device)
+    first = first.scatter_reduce(0, slot, chunk, "amin")[:nb]
+    last = torch.full((nb + 1,), -1, dtype=torch.int64, device=xyz.device)
+    last = last.scatter_reduce(0, slot, chunk, "amax")[:nb]
+    ks = torch.arange(nb, device=xyz.device)
+    inr = (ks[None] >= meta["cmin"][:, None]) & (ks[None] <= meta["cmax"][:, None])
+    span = torch.stack([torch.where(inr, first[None], nc).amin(dim=1),
+                        torch.where(inr, last[None], -1).amax(dim=1)], dim=1)
+    return {"pts4": pts4, "bucket": bucket, "chunk_box": pack_boxes(meta),
+            "span": span.to(torch.int32).contiguous()}
+
+
+def moments_walked_chunks(xyz, label, valid, radius, num_classes: int):
+    """The (query chunk, target chunk) pairs K1 walks, as an (N/32, N/32)
+    bool matrix: within each chunk's span, the boxes within the radius
+    with overlapping bucket ranges, and then within it of a valid query
+    whose bucket lies in the target chunk's range. The plain mirror of
+    csrc/moments.cu's culling, in its float32 arithmetic; it syncs."""
+    a = chunk_inputs(xyz, label, valid, num_classes)
+    nc = a["span"].shape[0]
+    lim = limit2(kernels.device_scalar(radius, torch.float32, xyz.device)[0])
+    cols = torch.arange(nc, device=xyz.device)
+    span = a["span"].long()
+    coarse = (cols[None] >= span[:, 0:1]) & (cols[None] <= span[:, 1:2])
+    pairs = torch.nonzero(coarse, as_tuple=True)
+    box, pts4 = a["chunk_box"], a["pts4"]
+    bucket = a["bucket"].reshape(nc, CHUNK)
+    walked = torch.zeros_like(coarse)
+    walked[pairs] = cull_chunks(box, box[:, 0:3], box[:, 4:7], pts4[:, :3].reshape(nc, CHUNK, 3),
+                                bucket >= 0, lim, pairs, lab=bucket)
+    return walked
 
 
 def neighborhood_moments_dense(xyz, label, valid, radius):

@@ -17,9 +17,9 @@ from semicp_torch.cloud.cloud import Cloud
 
 
 def cloud_from_numpy(xyz, label, cov6, valid, count, layout: str = "raw",
-                     device="cpu") -> Cloud:
+                     device="cuda") -> Cloud:
     """Cloud from planar host arrays: xyz (3,N), label (N,), cov6 (6,N),
-    valid (N,), count ()."""
+    valid (N,), count (), on the card unless `device` says otherwise."""
 
     def t(a, dtype):
         return torch.tensor(np.asarray(a, dtype), device=device)

@@ -62,6 +62,57 @@ def tile_meta(xyz, label, valid, num_classes: int, tile: int) -> dict:
     return {"lo": lo, "hi": hi, "cmin": cmin, "cmax": cmax}
 
 
+CHUNK = 32  # points of a chunk: one warp's width (csrc/common.cuh kChunk)
+
+
+def pack_boxes(meta: dict):
+    """(n_t, 8) float32 boxes of `tile_meta`: lo.x, lo.y, lo.z, cmin,
+    hi.x, hi.y, hi.z, cmax, the layout the walks of K1 and K2 read as two
+    float4s. An all-invalid tile keeps lo = +inf, hi = -inf, cmin > cmax."""
+    f32 = torch.float32
+    return torch.cat([meta["lo"], meta["cmin"][:, None].to(f32),
+                      meta["hi"], meta["cmax"][:, None].to(f32)], dim=1).contiguous()
+
+
+def limit2(g):
+    """The squared limit with `tile_candidates`' slack, g^2 (1 + 1e-5) +
+    1e-6, rounded in float32 step by step as the kernels round it."""
+    g = torch.as_tensor(g, dtype=torch.float32)
+    f32 = dict(dtype=torch.float32, device=g.device)
+    return g * g * torch.tensor(1.00001, **f32) + torch.tensor(1e-6, **f32)
+
+
+def box_gap2(alo, ahi, blo, bhi):
+    """Squared distance between boxes (..., 3), zero where they overlap,
+    in the kernels' order of float32 operations (csrc/common.cuh
+    `box_gap2`). A box with lo = +inf, hi = -inf is +inf away from all."""
+    d = torch.clamp(torch.maximum(alo - bhi, blo - ahi), min=0.0)
+    return (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+
+
+def cull_chunks(boxes, wlo, whi, pts, active, lim, pairs, lab=None):
+    """The chunks a warp walks (csrc/common.cuh `cull_window`): for each
+    (warp, chunk) of `pairs` (two index vectors), the chunk's box must lie
+    within `lim` of the warp's box and of one active lane's point. With
+    `lab`, the moments' class test too: the ranges overlap, and the
+    lane's label lies in the chunk's. pts (n_w, 32, 3), active and lab
+    (n_w, 32). Returns a bool per pair."""
+    w, c = pairs
+    lo, hi = boxes[c, 0:3], boxes[c, 4:7]
+    keep = box_gap2(wlo[w], whi[w], lo, hi) <= lim
+    if lab is not None:
+        cmin, cmax = boxes[c, 3].to(torch.int32), boxes[c, 7].to(torch.int32)
+        wmin, wmax = boxes[w, 3].to(torch.int32), boxes[w, 7].to(torch.int32)
+        keep &= (cmin <= wmax) & (wmin <= cmax)
+    p = pts[w]                                                   # (m, 32, 3)
+    hit = box_gap2(p, p, lo[:, None, :], hi[:, None, :]) <= lim
+    hit &= active[w]
+    if lab is not None:
+        ql = lab[w]
+        hit &= (ql >= cmin[:, None]) & (ql <= cmax[:, None])
+    return keep & torch.any(hit, dim=1)
+
+
 def tile_candidates(qlo, qhi, tlo, thi, gate, q_range=None, t_range=None):
     """Per-query-tile candidate target-tile lists under a distance gate.
 

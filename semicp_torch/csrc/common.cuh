@@ -105,6 +105,203 @@ __device__ __forceinline__ void nn_sparse_walk(const float* __restrict__ attrs,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The per-warp chunk walk of the redesigned sparse kernels (K1, K2).
+//
+// A chunk is 32 consecutive points of a class-major Morton sorted cloud,
+// one warp's width. Each chunk has a box of 8 floats, two float4s:
+// (lo.x, lo.y, lo.z, cmin | hi.x, hi.y, hi.z, cmax), the AABB and class
+// range of its valid points (corr/layout.py `pack_boxes`). A chunk with no
+// valid point has lo = +inf, hi = -inf and cmin > cmax, so every distance
+// to it is +inf and it is culled; no NaN can arise (inf - inf would need
+// lo = +inf against hi = +inf). A warp walks a chunk only if the chunk's
+// box lies within the squared limit of the warp's box and then of at
+// least one active lane's own point (lanes testing 32 chunks at once, see
+// `cull_window`). Box distance lower-bounds every pair distance, so the
+// walk stays exact.
+//
+// The distances of the culling are rounded step by step (no contraction
+// into FMAs), so corr/nn_sparse.py `nn_walked_chunks` and
+// cloud/moments.py `moments_walked_chunks` reproduce the kernels' walks
+// to the chunk and the walked-pair counts can be checked.
+constexpr int kChunk = 32;
+constexpr int kWalkWarps = 4;  // warps in a block of the persistent walks
+constexpr unsigned kFull = 0xffffffffu;
+
+struct Box {
+  float4 lo, hi;
+};
+
+__device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
+
+__device__ __forceinline__ Box load_box(const float4* __restrict__ boxes, int c) {
+  return {__ldg(boxes + 2 * c), __ldg(boxes + 2 * c + 1)};
+}
+
+// The slack of corr/layout.py tile_candidates on a squared limit:
+// g^2 (1 + 1e-5) + 1e-6, in f32.
+__device__ __forceinline__ float limit2(float g) {
+  return __fadd_rn(__fmul_rn(__fmul_rn(g, g), 1.00001f), 1e-6f);
+}
+
+__device__ __forceinline__ float gap(float alo, float ahi, float blo, float bhi) {
+  return fmaxf(fmaxf(__fsub_rn(alo, bhi), __fsub_rn(blo, ahi)), 0.f);
+}
+
+// Squared distance between two boxes (zero where they overlap).
+__device__ __forceinline__ float box_gap2(const float4& alo, const float4& ahi,
+                                          const float4& blo, const float4& bhi) {
+  const float dx = gap(alo.x, ahi.x, blo.x, bhi.x);
+  const float dy = gap(alo.y, ahi.y, blo.y, bhi.y);
+  const float dz = gap(alo.z, ahi.z, blo.z, bhi.z);
+  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+}
+
+// The box of the warp's active lanes' points, by shuffles (+inf/-inf when
+// no lane is active).
+__device__ __forceinline__ Box warp_box(float px, float py, float pz, bool active) {
+  const float inf = pos_inf();
+  Box b;
+  b.lo = active ? make_float4(px, py, pz, 0.f) : make_float4(inf, inf, inf, 0.f);
+  b.hi = active ? make_float4(px, py, pz, 0.f) : make_float4(-inf, -inf, -inf, 0.f);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    b.lo.x = fminf(b.lo.x, __shfl_xor_sync(kFull, b.lo.x, off));
+    b.lo.y = fminf(b.lo.y, __shfl_xor_sync(kFull, b.lo.y, off));
+    b.lo.z = fminf(b.lo.z, __shfl_xor_sync(kFull, b.lo.z, off));
+    b.hi.x = fmaxf(b.hi.x, __shfl_xor_sync(kFull, b.hi.x, off));
+    b.hi.y = fmaxf(b.hi.y, __shfl_xor_sync(kFull, b.hi.y, off));
+    b.hi.z = fmaxf(b.hi.z, __shfl_xor_sync(kFull, b.hi.z, off));
+  }
+  return b;
+}
+
+// The chunks c0 + j in [c_first, c_last] (j < 32) that the warp walks, as a
+// bit mask.
+// qp holds the warp's 32 query points in shared memory, with the int bits
+// of w < 0 for an inactive lane; with kClass (the moments) w is the
+// point's label, and a chunk must also share a class with the warp's
+// range [wcmin, wcmax] and hold an active point's label in its own range.
+// Lane j tests chunk c0 + j: first its box against the warp's box, then,
+// if that passes, against each of the 32 points (LDS.128 broadcasts, no
+// serial chain across chunks). Every lane of the warp must call it.
+template <bool kClass>
+__device__ __forceinline__ unsigned cull_window(const float4* __restrict__ boxes, int c0,
+                                                int c_first, int c_last, const Box& wb,
+                                                int wcmin, int wcmax,
+                                                const float4* __restrict__ qp, float lim) {
+  const int lane = threadIdx.x & 31;
+  const int c = c0 + lane;
+  bool keep = false;
+  Box b;
+  if (c >= c_first && c <= c_last) {
+    b = load_box(boxes, c);
+    keep = box_gap2(wb.lo, wb.hi, b.lo, b.hi) <= lim;
+    if (kClass)
+      keep = keep && static_cast<int>(b.lo.w) <= wcmax && wcmin <= static_cast<int>(b.hi.w);
+  }
+  if (!__ballot_sync(kFull, keep)) return 0u;
+  bool hit = false;
+  if (keep) {
+    const int cmin = static_cast<int>(b.lo.w), cmax = static_cast<int>(b.hi.w);
+#pragma unroll 4
+    for (int i = 0; i < kChunk; ++i) {
+      const float4 p = qp[i];
+      const int l = __float_as_int(p.w);
+      bool h = l >= 0 && box_gap2(p, p, b.lo, b.hi) <= lim;
+      if (kClass) h = h && l >= cmin && l <= cmax;
+      hit = hit || h;
+    }
+  }
+  return __ballot_sync(kFull, hit);
+}
+
+// Running best of one class in registers: the class, its d2 and index.
+struct ClassBest {
+  int k;
+  float d;
+  int i;
+};
+
+// Write the cached class back to the warp's per-class slots (k * 32 + lane).
+__device__ __forceinline__ void best_flush(const ClassBest& cur, float* __restrict__ bd,
+                                           int* __restrict__ bi) {
+  if (cur.k >= 0) {
+    const int lane = threadIdx.x & 31;
+    bd[cur.k * kChunk + lane] = cur.d;
+    bi[cur.k * kChunk + lane] = cur.i;
+  }
+}
+
+__device__ __forceinline__ void best_switch(ClassBest& cur, int k, float* __restrict__ bd,
+                                            int* __restrict__ bi) {
+  best_flush(cur, bd, bi);
+  const int lane = threadIdx.x & 31;
+  cur.k = k;
+  cur.d = bd[k * kChunk + lane];
+  cur.i = bi[k * kChunk + lane];
+}
+
+// The NN walk of one staged chunk (K2): sp holds its 32 points as
+// (x, y, z, |t|^2) with |t|^2 = +inf for an invalid point, sl their labels
+// (num_classes = invalid), `base` the index of its first point and
+// [cmin, cmax] its class range. d2 = |q|^2 + |t|^2 - 2 q.t is the fmaf
+// chain of nn_sparse_walk, so its bits equal the split kernel's. A chunk
+// of one class (the usual case in the class-major layout) runs its 32
+// pairs without a branch or a label read, against the class's best in
+// registers; a mixed chunk takes the per-pair path, which skips every
+// label outside [0, num_classes). Chunks are walked in ascending index
+// order, so a strict < keeps the lowest index of a tie.
+__device__ __forceinline__ void nn_chunk_walk(const float4* __restrict__ sp,
+                                              const int* __restrict__ sl, int base, int cmin,
+                                              int cmax, int num_classes, float q2, float m2x,
+                                              float m2y, float m2z, ClassBest& cur,
+                                              float* __restrict__ bd, int* __restrict__ bi) {
+  if (cmin == cmax && static_cast<unsigned>(cmin) < static_cast<unsigned>(num_classes)) {
+    if (cmin != cur.k) best_switch(cur, cmin, bd, bi);
+    float d = cur.d;
+    int idx = cur.i;
+#pragma unroll 8
+    for (int j = 0; j < kChunk; ++j) {
+      const float4 t = sp[j];
+      const float d2 = fmaf(m2z, t.z, fmaf(m2y, t.y, fmaf(m2x, t.x, q2 + t.w)));
+      const bool better = d2 < d;
+      d = better ? d2 : d;
+      idx = better ? base + j : idx;
+    }
+    cur.d = d;
+    cur.i = idx;
+    return;
+  }
+  for (int j = 0; j < kChunk; ++j) {
+    const int lab = sl[j];
+    if (static_cast<unsigned>(lab) >= static_cast<unsigned>(num_classes)) continue;
+    const float4 t = sp[j];
+    const float d2 = fmaf(m2z, t.z, fmaf(m2y, t.y, fmaf(m2x, t.x, q2 + t.w)));
+    if (lab != cur.k) best_switch(cur, lab, bd, bi);
+    if (d2 < cur.d) {
+      cur.d = d2;
+      cur.i = base + j;
+    }
+  }
+}
+
+// The (d2, index) pair as one 64-bit key whose unsigned order is the
+// lexicographic order of (d2, index): the f32 bits mapped to an order-
+// preserving unsigned (negatives flipped, positives with the sign bit
+// set; -0 is taken as +0) in the high word, the index in the low word.
+// atomicMin on such keys merges per-class minima exactly and in any order.
+__device__ __forceinline__ unsigned long long pack_key(float d2, int i) {
+  const unsigned u = __float_as_uint(d2 + 0.f);
+  const unsigned e = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return (static_cast<unsigned long long>(e) << 32) | static_cast<unsigned>(i);
+}
+
+__device__ __forceinline__ float key_d2(unsigned long long key) {
+  const unsigned e = static_cast<unsigned>(key >> 32);
+  return __uint_as_float((e & 0x80000000u) ? (e ^ 0x80000000u) : ~e);
+}
+
 // Running state of the E-step's online softmax over the classes of one
 // point: max log-likelihood m, sum s, and the weighted planes A (6), b (3)
 // and c, all rescaled to the running max.

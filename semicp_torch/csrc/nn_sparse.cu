@@ -4,84 +4,286 @@
 // Replaces the Pallas kernel `class_nn_attrs_sparse` of the JAX package
 // (semicp/corr/pallas_nn2.py, `_sparse_kernel`, merge="twophase"). For
 // every query and every class k it finds the minimum expanded-form
-// distance d2 = |q|^2 + |t|^2 - 2 q.t over the class-k targets of the
-// query tile's candidate target tiles (tiles whose boxes lie within the
-// correspondence gate), and writes the winner's attribute row: x, y, z,
-// cov6, then 1.0 in row 9 (found) and zeros in rows 10-15. A class with
-// no candidate gets d2 = INF and a zero row. Exact ties take the lowest
-// target index (the argmin semantics of the plain `class_nn`).
+// distance d2 = |q|^2 + |t|^2 - 2 q.t over the class-k targets that lie
+// within the correspondence gate of the query (and possibly some beyond),
+// and writes the winner's attribute row: x, y, z, cov6, then 1.0 in row 9
+// (found) and zeros in rows 10-15. A class with no candidate gets d2 = INF
+// and a zero row. Exact ties take the lowest target index (the argmin
+// semantics of the plain `class_nn`). The TPU kernel's one-hot MXU select,
+// two-phase walk and candidate caps are TPU workarounds and are not
+// ported.
 //
-// Bound on the H100: arithmetic on the candidate pairs (each query tests
-// every point of its tile's candidate tiles, ~1e4 pairs a query at the
-// bench scene's 2 m gate), plus one gather of the winners' rows. The
-// TPU kernel's one-hot MXU select, two-phase walk and candidate caps are
-// TPU workarounds and are not ported. Design: one block per 256-query
-// tile, one thread per query; each candidate tile is staged through
-// shared memory in 256-point chunks (x, y, z, |t|^2, label), read by all
-// threads as broadcasts. Each thread keeps its per-class running best
-// (d2, index) in shared memory, one column per thread (conflict free),
-// and caches the current class's best in registers: in the class-major
-// layout a tile's labels are non-decreasing, so the cache is written back
-// only where the class changes. Correctness does not depend on the
-// layout. The winners' rows are gathered from the attribute slab at the
-// end, so the walk itself moves no attributes. The walk is
-// `nn_sparse_walk` in common.cuh, shared with the fused E-step (K6).
+// Bound on the H100: the f32 arithmetic on the walked pairs (a fmaf chain
+// of 7 flops and a compare each); the (K, 16, Q) output, written once, is
+// the only large memory traffic. The design answers four limits of the
+// first port, which walked 256-query tiles against whole 1024-point
+// target tiles from one block per query tile:
+//
+// 1. The pruning unit is the warp, not the TPU's tile. A query warp (32
+//    queries) reduces its box with shuffles; a target tile is cut into
+//    32-point chunks with their own boxes and class ranges (prepared once
+//    an align in corr/nn_sparse.py `prepare_sparse`). A warp walks a chunk
+//    only if it lies within the gate of the warp's box and of one of its
+//    own valid queries (common.cuh `cull_window`, the slack of
+//    `tile_candidates`). That walks about a fifth of the pairs.
+// 2. Balance. The work is cut into items, one per (query warp, target
+//    tile) pair whose boxes lie within the gate: `nn_items_kernel` lists
+//    them (a warp-aggregated atomic append; the warp's box is kept for the
+//    walk), and persistent warps of `nn_walk_kernel` take items off an
+//    atomic counter, so no SM waits on one dense query tile. An item holds
+//    at most 32 chunks. Items of one query warp run on different warps, so
+//    each merges its per-class minima with a 64-bit atomicMin on the key
+//    (order-preserving d2 bits << 32 | target index): exact, independent
+//    of the order of the run, lowest index on ties, and right for the
+//    slightly negative d2 that expanded-form cancellation can give.
+//    `nn_gather_kernel` then writes d2 and gathers the winners' rows.
+// 3. The inner loop is one LDS.128 broadcast per pair: a chunk is staged
+//    as packed (x, y, z, |t|^2) float4s, |t|^2 = +inf marking an invalid
+//    point, into a warp-private ring of two slots; the next chunk's loads
+//    are issued before the current chunk is walked, and only __syncwarp
+//    orders the ring (no block barrier). A chunk of one class runs its 32
+//    pairs without a branch against the class's best in registers; mixed
+//    chunks take the per-pair path with the label (common.cuh
+//    `nn_chunk_walk`). The d2 is the fmaf chain of the first port, so the
+//    winners and d2 bits within the gate are those of the first port.
+// 4. No candidate lists are built in torch: the item list, the query warp
+//    boxes and the culling are made on the device inside this call
+//    (two memsets, three launches, no host sync).
+//
+// The fused E-step (K6, estep_fused.cu) still runs the first port's walk
+// (`nn_sparse_walk`).
 
 #include "common.cuh"
 
 namespace {
 
+using semicp::Box;
+using semicp::ClassBest;
 using semicp::kAttr;
+using semicp::kChunk;
+using semicp::kFull;
 using semicp::kInf;
-using semicp::kQB;
+using semicp::kWalkWarps;
 
-__global__ void __launch_bounds__(kQB)
-nn_sparse_kernel(const float* __restrict__ attrs, const int* __restrict__ cand,
-                 const int* __restrict__ count, const float* __restrict__ q_xyz,
-                 int n, int q, int n_cand, int tb, int num_classes,
-                 float* __restrict__ out_d2, float* __restrict__ out_attr) {
-  extern __shared__ float smem[];
-  float* best_d = smem + 5 * kQB;                            // (K, kQB)
-  int* best_i = reinterpret_cast<int*>(best_d + num_classes * kQB);
+// counters: [0] items listed, [1] items taken, [2] chunks walked
+constexpr unsigned long long kNone = ~0ull;
 
-  const int t = threadIdx.x;
-  const int qi = blockIdx.x * kQB + t;
-  semicp::nn_sparse_walk(attrs, cand + blockIdx.x * n_cand, count[blockIdx.x], n, tb,
-                         num_classes, q_xyz[qi], q_xyz[q + qi], q_xyz[2 * q + qi], smem,
-                         best_d, best_i);
-
-  for (int k = 0; k < num_classes; ++k) {
-    const int i = best_i[k * kQB + t];
-    const bool found = i >= 0;
-    out_d2[k * q + qi] = found ? best_d[k * kQB + t] : kInf;
-    float* o = out_attr + static_cast<size_t>(k) * kAttr * q + qi;
-#pragma unroll
-    for (int r = 0; r < 9; ++r) o[r * q] = found ? attrs[r * n + i] : 0.f;
-    o[9 * q] = found ? 1.f : 0.f;
-#pragma unroll
-    for (int r = 10; r < kAttr; ++r) o[r * q] = 0.f;
+// One warp per query warp: its box (kept in wbox, 8 floats) and the target
+// tiles within the gate of it, appended to `items` as w * n_tt + tile.
+__global__ void __launch_bounds__(128)
+nn_items_kernel(const float* __restrict__ q_xyz, const bool* __restrict__ q_valid,
+                const float4* __restrict__ tile_box, const float* __restrict__ gate, int q,
+                int n_tt, float4* __restrict__ wbox, int* __restrict__ items,
+                unsigned long long* __restrict__ counters) {
+  const int w = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (w >= q / kChunk) return;  // uniform across the warp
+  const int qi = w * kChunk + lane;
+  const Box wb = semicp::warp_box(q_xyz[qi], q_xyz[q + qi], q_xyz[2 * q + qi], q_valid[qi]);
+  if (lane == 0) {
+    wbox[2 * w] = wb.lo;
+    wbox[2 * w + 1] = wb.hi;
   }
+  const float lim = semicp::limit2(*gate);
+  for (int t0 = 0; t0 < n_tt; t0 += kChunk) {
+    const int tt = t0 + lane;
+    bool keep = false;
+    if (tt < n_tt) {
+      const Box b = semicp::load_box(tile_box, tt);
+      keep = semicp::box_gap2(wb.lo, wb.hi, b.lo, b.hi) <= lim;
+    }
+    const unsigned m = __ballot_sync(kFull, keep);
+    if (!m) continue;
+    unsigned long long base = 0;
+    if (lane == 0) base = atomicAdd(&counters[0], static_cast<unsigned long long>(__popc(m)));
+    base = __shfl_sync(kFull, base, 0);
+    if (keep) items[base + __popc(m & ((1u << lane) - 1u))] = w * n_tt + tt;
+  }
+}
+
+// Persistent warps over the items: each walks the chunks of one target
+// tile that its query warp needs and merges the per-class minima into keys.
+// Shared memory per warp: a ring of two staged chunks (points and labels),
+// its 32 query points for the culling, and the per-class best (d2, index)
+// of its queries.
+__global__ void __launch_bounds__(kWalkWarps * 32)
+nn_walk_kernel(const float4* __restrict__ pts4, const int* __restrict__ label_s,
+               const float4* __restrict__ chunk_box, const float4* __restrict__ tile_box,
+               const float* __restrict__ q_xyz, const bool* __restrict__ q_valid,
+               const float4* __restrict__ wbox, const int* __restrict__ items,
+               unsigned long long* __restrict__ counters, const float* __restrict__ gate, int q,
+               int tb, int n_tt, int num_classes, unsigned long long* __restrict__ keys) {
+  extern __shared__ float4 smem4[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float4* ring = smem4 + warp * 2 * kChunk;
+  int* ring_lab = reinterpret_cast<int*>(smem4 + kWalkWarps * 2 * kChunk) + warp * 2 * kChunk;
+  float4* qp = smem4 + kWalkWarps * 2 * kChunk + kWalkWarps * kChunk / 2 + warp * kChunk;
+  float* bd = reinterpret_cast<float*>(smem4 + kWalkWarps * 2 * kChunk + kWalkWarps * kChunk / 2 +
+                                       kWalkWarps * kChunk) +
+              warp * 2 * num_classes * kChunk;
+  int* bi = reinterpret_cast<int*>(bd + num_classes * kChunk);
+
+  const float lim = semicp::limit2(*gate);
+  const unsigned long long total = counters[0];
+  const int per_tile = tb / kChunk;  // <= 32: one window an item
+  int slot = 0;
+
+  for (;;) {
+    unsigned long long it = 0;
+    if (lane == 0) it = atomicAdd(&counters[1], 1ull);
+    it = __shfl_sync(kFull, it, 0);
+    if (it >= total) break;
+    const int item = items[it];
+    const int w = item / n_tt;
+    const int tt = item - w * n_tt;
+    const int qi = w * kChunk + lane;
+    const float px = q_xyz[qi], py = q_xyz[q + qi], pz = q_xyz[2 * q + qi];
+    const bool active = q_valid[qi];
+    const Box wb = {wbox[2 * w], wbox[2 * w + 1]};
+    const Box tbx = semicp::load_box(tile_box, tt);
+    // prepare_sparse keeps class ranges inside [0, K); the clamp keeps the
+    // per-class slots in bounds whatever the boxes say
+    const int kmin = static_cast<int>(tbx.lo.w);
+    const int kmax = min(static_cast<int>(tbx.hi.w), num_classes - 1);
+    for (int k = kmin; k <= kmax; ++k) {
+      bd[k * kChunk + lane] = kInf;
+      bi[k * kChunk + lane] = -1;
+    }
+    const int c0 = tt * per_tile;
+    qp[lane] = make_float4(px, py, pz, __int_as_float(active ? 0 : -1));
+    __syncwarp();
+    unsigned m = semicp::cull_window<false>(chunk_box, c0, c0, c0 + per_tile - 1, wb, 0, 0, qp,
+                                            lim);
+    if (lane == 0 && m) atomicAdd(&counters[2], static_cast<unsigned long long>(__popc(m)));
+
+    const float q2 = px * px + py * py + pz * pz;
+    const float m2x = -2.f * px, m2y = -2.f * py, m2z = -2.f * pz;
+    ClassBest cur = {-1, kInf, -1};
+    int c = m ? __ffs(m) - 1 : -1;
+    if (c >= 0) m &= m - 1;
+    float4 nxt = make_float4(0.f, 0.f, 0.f, 0.f);
+    int nlab = 0;
+    if (c >= 0) {
+      nxt = __ldg(pts4 + (c0 + c) * kChunk + lane);
+      nlab = __ldg(label_s + (c0 + c) * kChunk + lane);
+    }
+    while (c >= 0) {
+      const int cc = c0 + c;
+      float4* sp = ring + slot * kChunk;
+      int* sl = ring_lab + slot * kChunk;
+      sp[lane] = nxt;
+      sl[lane] = nlab;
+      __syncwarp();
+      c = m ? __ffs(m) - 1 : -1;
+      if (c >= 0) {
+        m &= m - 1;
+        nxt = __ldg(pts4 + (c0 + c) * kChunk + lane);
+        nlab = __ldg(label_s + (c0 + c) * kChunk + lane);
+      }
+      const Box cb = semicp::load_box(chunk_box, cc);
+      semicp::nn_chunk_walk(sp, sl, cc * kChunk, static_cast<int>(cb.lo.w),
+                            static_cast<int>(cb.hi.w), num_classes, q2, m2x, m2y, m2z, cur, bd,
+                            bi);
+      slot ^= 1;
+    }
+    semicp::best_flush(cur, bd, bi);
+    __syncwarp();
+    if (active) {
+      for (int k = kmin; k <= kmax; ++k) {
+        const int i = bi[k * kChunk + lane];
+        if (i >= 0)
+          atomicMin(keys + static_cast<size_t>(k) * q + qi,
+                    semicp::pack_key(bd[k * kChunk + lane], i));
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// One thread per (class, query): d2 and the winner's row from its key.
+__global__ void __launch_bounds__(256)
+nn_gather_kernel(const unsigned long long* __restrict__ keys, const float* __restrict__ attrs,
+                 int n, int q, int num_classes, float* __restrict__ out_d2,
+                 float* __restrict__ out_attr) {
+  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= static_cast<size_t>(num_classes) * q) return;
+  const int k = static_cast<int>(idx / q);
+  const int qi = static_cast<int>(idx - static_cast<size_t>(k) * q);
+  const unsigned long long key = keys[idx];
+  const bool found = key != kNone;
+  const int i = found ? static_cast<int>(key & 0xffffffffu) : 0;
+  out_d2[idx] = found ? semicp::key_d2(key) : kInf;
+  float* o = out_attr + static_cast<size_t>(k) * kAttr * q + qi;
+#pragma unroll
+  for (int r = 0; r < 9; ++r)
+    o[static_cast<size_t>(r) * q] = found ? __ldg(attrs + static_cast<size_t>(r) * n + i) : 0.f;
+  o[static_cast<size_t>(9) * q] = found ? 1.f : 0.f;
+#pragma unroll
+  for (int r = 10; r < kAttr; ++r) o[static_cast<size_t>(r) * q] = 0.f;
+}
+
+size_t walk_smem_bytes(int num_classes) {
+  // ring: 2 x 32 float4 + 2 x 32 labels; queries: 32 float4; best: K x 32 x
+  // (f32 + i32), per warp
+  return static_cast<size_t>(kWalkWarps) * (2 * kChunk * 16 + 2 * kChunk * 4 + kChunk * 16 +
+                                            static_cast<size_t>(num_classes) * kChunk * 8);
 }
 
 }  // namespace
 
-// attrs16 (16,n) f32 from prepare_sparse (x,y,z | cov6 | 1 | |t|^2 | label);
-// cand (q/256, n_cand) i32 and count (q/256,) i32 candidate target tiles of
-// size tb per 256-query tile; q_xyz (3,q) f32. out_d2 (K,q), out_attr
-// (K,16,q) f32. q % 256 == 0, tb % 256 == 0.
-extern "C" cudaError_t semicp_nn_sparse(const float* attrs16, const int* cand,
-                                        const int* count, const float* q_xyz, int n,
-                                        int q, int n_cand, int tb, int num_classes,
-                                        float* out_d2, float* out_attr,
-                                        cudaStream_t stream) {
-  const size_t smem = semicp::nn_sparse_smem_bytes(num_classes);
+// pts4 (n,4) f32 (x, y, z, |t|^2 or +inf where invalid), label_s (n,) i32
+// (num_classes where invalid or past the classes), attrs16 (16,n) f32,
+// tile_box (n/tb, 8) and chunk_box (n/32, 8) f32 from prepare_sparse, their
+// class ranges inside [0, num_classes); q_xyz (3,q) f32, q_valid
+// (q,) bool, gate one f32 on the device. Scratch: keys (K,q) u64, items
+// (q/32 * n/tb) i32, wbox (q/32, 8) f32, counters (3,) u64. out_d2 (K,q),
+// out_attr (K,16,q) f32. q % 32 == 0, tb % 32 == 0, tb <= 1024.
+extern "C" cudaError_t semicp_nn_sparse(const float* pts4, const int* label_s,
+                                        const float* attrs16, const float* tile_box,
+                                        const float* chunk_box, const float* q_xyz,
+                                        const bool* q_valid, const float* gate, int n, int q,
+                                        int tb, int num_classes, unsigned long long* keys,
+                                        int* items, float* wbox, unsigned long long* counters,
+                                        float* out_d2, float* out_attr, cudaStream_t stream) {
+  const int n_tt = n / tb;
+  const int nw = q / kChunk;
+  cudaError_t err = cudaMemsetAsync(counters, 0, 3 * sizeof(unsigned long long), stream);
+  if (err != cudaSuccess) return err;
+  err = cudaMemsetAsync(keys, 0xff, static_cast<size_t>(num_classes) * q * 8, stream);
+  if (err != cudaSuccess) return err;
+  nn_items_kernel<<<(nw + 3) / 4, 128, 0, stream>>>(q_xyz, q_valid,
+                                                    reinterpret_cast<const float4*>(tile_box),
+                                                    gate, q, n_tt,
+                                                    reinterpret_cast<float4*>(wbox), items,
+                                                    counters);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const size_t smem = walk_smem_bytes(num_classes);
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        nn_sparse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    err = cudaFuncSetAttribute(nn_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  nn_sparse_kernel<<<q / kQB, kQB, smem, stream>>>(attrs16, cand, count, q_xyz, n, q,
-                                                   n_cand, tb, num_classes, out_d2,
-                                                   out_attr);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, nn_walk_kernel,
+                                                           kWalkWarps * 32, smem)) != cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  nn_walk_kernel<<<sms * per_sm, kWalkWarps * 32, smem, stream>>>(
+      reinterpret_cast<const float4*>(pts4), label_s, reinterpret_cast<const float4*>(chunk_box),
+      reinterpret_cast<const float4*>(tile_box), q_xyz, q_valid,
+      reinterpret_cast<const float4*>(wbox), items, counters, gate, q, tb, n_tt, num_classes,
+      keys);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const size_t total = static_cast<size_t>(num_classes) * q;
+  nn_gather_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
+      keys, attrs16, n, q, num_classes, out_d2, out_attr);
   return cudaGetLastError();
 }

@@ -10,7 +10,10 @@ machine with no `nvcc`.
 Every kernel wrapper checks its arguments, launches on PyTorch's current
 stream, raises if the launch reports an error, and adds one to its entry
 in `LAUNCHES` — there and nowhere else — so a run can show that the main
-path went through the kernels.
+path went through the kernels. An auxiliary pass of a kernel (K1's cost
+count) launches with no counter. The data-dependent walks (K1, K2) leave
+a device tensor of the chunks they walked in `WALKED`, each chunk being
+32 x 32 query-target pairs; reading it syncs, so only a measurement does.
 """
 
 from __future__ import annotations
@@ -31,14 +34,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES = {"moments_sparse": 0, "nn_sparse": 0, "estep_reduce": 0,
             "moments_dense": 0, "nn_dense": 0, "estep_fused": 0}
+WALKED: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # xyz, tlab, qlab, cand, count, radius, n, n_cand, tb, out, stream
-    "semicp_moments_sparse": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
-    # attrs16, cand, count, q_xyz, n, q, n_cand, tb, num_classes, out_d2, out_attr, stream
-    "semicp_nn_sparse": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
+    # xyz, label, valid, radius, n, num_classes, pts4, chunk_box, tile_box, span,
+    # first_last, count, stream
+    "semicp_moments_cost": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P),
+    # pts4, chunk_box, tile_box, span, order, radius, n, num_classes, counter, out, stream
+    "semicp_moments_sparse": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P),
+    # pts4, label_s, attrs16, tile_box, chunk_box, q_xyz, q_valid, gate, n, q, tb,
+    # num_classes, keys, items, wbox, counters, out_d2, out_attr, stream
+    "semicp_nn_sparse": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+                         _P, _P, _P),
     # nn_d2, attrs, rc6, moved, log_sem, valid, gate2, num_classes, n, a6, b3, c, wsum, stream
     "semicp_estep_reduce": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
     # xyz, tlab, qlab, radius, n, out, stream
@@ -118,14 +127,16 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def launch(name: str, counter: str, device: torch.device, *args) -> None:
-    """Call C entry `name` on `device`'s current stream; raise on a launch error."""
+def launch(name: str, counter: str | None, device: torch.device, *args) -> None:
+    """Call C entry `name` on `device`'s current stream; raise on a launch
+    error. Counts one launch of `counter` unless it is None."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(library(), name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}")
-    LAUNCHES[counter] += 1
+    if counter is not None:
+        LAUNCHES[counter] += 1
 
 
 def device_scalar(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:

@@ -93,7 +93,8 @@ def test_preprocess_full_config_matches_jax(rng):
     over = {"cloud.n_pad": 2048, "cloud.num_classes": K}
     cj = semicp.preprocess_cloud(semicp.make_cloud(xyz, lab - 1, n_pad=2048),
                                  semicp.Config().override(over))
-    ct = semicp_torch.preprocess_cloud(semicp_torch.make_cloud(xyz, lab - 1, n_pad=2048),
+    ct = semicp_torch.preprocess_cloud(semicp_torch.make_cloud(xyz, lab - 1, n_pad=2048,
+                                                               device="cpu"),
                                        semicp_torch.Config().override(over))
     assert ct.layout == cj.layout == "cm"
     np.testing.assert_array_equal(ct.xyz.numpy(), np.asarray(cj.xyz))
@@ -111,7 +112,8 @@ def test_preprocess_bare_covconfig_keeps_layout(rng):
     xyz, lab = make_scene(rng, n_points=900, extent=8.0, n_classes=5)
     cj = semicp.preprocess_cloud(semicp.make_cloud(xyz, lab - 1, n_pad=1024),
                                  JCovConfig(radius=0.9))
-    ct = semicp_torch.preprocess_cloud(semicp_torch.make_cloud(xyz, lab - 1, n_pad=1024),
+    ct = semicp_torch.preprocess_cloud(semicp_torch.make_cloud(xyz, lab - 1, n_pad=1024,
+                                                               device="cpu"),
                                        TCovConfig(radius=0.9))
     assert ct.layout == "raw"
     np.testing.assert_array_equal(ct.xyz.numpy(), np.asarray(cj.xyz))
@@ -124,7 +126,7 @@ def test_preprocess_bare_covconfig_keeps_layout(rng):
 def test_unported_paths_raise():
     """The kNN covariances are the one preprocessing path still to port.
     The raw layout, which raised on CUDA until K5, now runs everywhere."""
-    c = semicp_torch.make_cloud(np.zeros((10, 3), np.float32), n_pad=256)
+    c = semicp_torch.make_cloud(np.zeros((10, 3), np.float32), n_pad=256, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1"):
         semicp_torch.preprocess_cloud(c, TCovConfig(method="knn"))
     out = semicp_torch.preprocess_cloud(c, TCovConfig(radius=0.5))

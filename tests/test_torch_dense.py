@@ -116,7 +116,8 @@ def test_preprocess_raw_layout_matches_jax(rng, cfg_kind, class_aware):
         cj, ct = cj.cov, ct.cov
     out_j = semicp.preprocess_cloud(semicp.make_cloud(xyz, lab - 1, n_pad=2048), cj,
                                     class_aware=class_aware)
-    out_t = semicp_torch.preprocess_cloud(semicp_torch.make_cloud(xyz, lab - 1, n_pad=2048),
+    out_t = semicp_torch.preprocess_cloud(semicp_torch.make_cloud(xyz, lab - 1, n_pad=2048,
+                                                                  device="cpu"),
                                           ct, class_aware=class_aware)
     assert out_t.layout == out_j.layout == ("raw" if cfg_kind == "cov" else "cm")
     np.testing.assert_array_equal(out_t.xyz.numpy(), np.asarray(out_j.xyz))
@@ -148,7 +149,8 @@ def test_dense_engine_raw_layout_slice_matches_jax(rng, monkeypatch):
                         counted("moments", t_moments.neighborhood_moments_dense))
     monkeypatch.setattr(t_em_icp, "class_nn_attrs_dense",
                         counted("nn", t_em_icp.class_nn_attrs_dense))
-    s, t = (semicp_torch.preprocess_cloud(semicp_torch.make_cloud(p, l, n_pad=2048), ct.cov)
+    s, t = (semicp_torch.preprocess_cloud(semicp_torch.make_cloud(p, l, n_pad=2048,
+                                                                  device="cpu"), ct.cov)
             for p, l in ((src, slab), (xyz, lab)))
     assert s.layout == t.layout == "raw"
     rt = semicp_torch.align(s, t, ct)

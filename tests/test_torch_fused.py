@@ -111,7 +111,8 @@ def test_fused_estep_slice_matches_split_and_jax(rng, monkeypatch):
 
     monkeypatch.setattr(t_em_icp, "estep_sparse_fused", counted)
     base = semicp_torch.Config().override(over)
-    src, tgt = (semicp_torch.preprocess_cloud(semicp_torch.make_cloud(p, l, n_pad=2048), base)
+    src, tgt = (semicp_torch.preprocess_cloud(semicp_torch.make_cloud(p, l, n_pad=2048,
+                                                                      device="cpu"), base)
                 for p, l in ((src_pts, src_lab), (tgt_pts, tgt_lab)))
     r_split = semicp_torch.make_align_fn(base)(src, tgt)
     assert not calls

@@ -27,7 +27,7 @@ def scene_clouds(rng, n_points, n_pad, n_classes):
     # the stable tie-break is exercised
     xyz[:50] = xyz[50:100]
     lab[:50] = lab[50:100]
-    return j_make_cloud(xyz, lab, n_pad=n_pad), t_make_cloud(xyz, lab, n_pad=n_pad)
+    return j_make_cloud(xyz, lab, n_pad=n_pad), t_make_cloud(xyz, lab, n_pad=n_pad, device="cpu")
 
 
 @pytest.mark.parametrize("n_points,n_pad,cell", [(900, 1024, 1.0), (1900, 2048, 2.0),

@@ -113,7 +113,8 @@ def ndt_pair():
     jsrc_pre = jax.jit(lambda c: semicp.preprocess_cloud(c, cj.cov))(jsrc)
 
     def carry(c):
-        return cloud_from_numpy(c.xyz, c.label, c.cov6, c.valid, c.count, layout=c.layout)
+        return cloud_from_numpy(c.xyz, c.label, c.cov6, c.valid, c.count, layout=c.layout,
+                                device="cpu")
 
     tcfg = semicp_torch.Config().override(OVER)
     return {"cj": cj, "ct": tcfg, "T_gt": T_gt,
@@ -163,7 +164,7 @@ def test_align_gicp_matches_jax(ndt_pair):
     jsrc = ndt_pair["j"][2]
     rj = j_align_gicp(jsrc, jtgt, cj)
     tsrc = ndt_pair["t"][2]
-    ttgt = cloud_from_numpy(jtgt.xyz, jtgt.label, jtgt.cov6, jtgt.valid, jtgt.count)
+    ttgt = cloud_from_numpy(jtgt.xyz, jtgt.label, jtgt.cov6, jtgt.valid, jtgt.count, device="cpu")
     rt = t_align_gicp(tsrc, ttgt, ct)
     check_T(rt.T.numpy(), np.asarray(rj.T), ndt_pair["T_gt"])
     assert not dataclasses.asdict(ct)["em"]["uniform_semantics"]   # cfg not mutated

@@ -108,8 +108,10 @@ def test_align_matches_jax_and_gt(pair):
     rj = semicp.align(semicp.preprocess_cloud(semicp.make_cloud(src, slab, n_pad=2048), cj),
                       semicp.preprocess_cloud(semicp.make_cloud(tgt, tlab, n_pad=2048), cj), cj)
     rt = semicp_torch.align(
-        semicp_torch.preprocess_cloud(semicp_torch.make_cloud(src, slab, n_pad=2048), ct),
-        semicp_torch.preprocess_cloud(semicp_torch.make_cloud(tgt, tlab, n_pad=2048), ct), ct)
+        semicp_torch.preprocess_cloud(semicp_torch.make_cloud(src, slab, n_pad=2048,
+                                                              device="cpu"), ct),
+        semicp_torch.preprocess_cloud(semicp_torch.make_cloud(tgt, tlab, n_pad=2048,
+                                                              device="cpu"), ct), ct)
     np.testing.assert_allclose(rt.T.numpy(), np.asarray(rj.T), atol=1e-4)
     assert abs(int(rt.iterations) - int(rj.iterations)) <= 1
     assert bool(rt.converged) and bool(rj.converged)
@@ -127,7 +129,7 @@ def test_align_on_jax_preprocessed_clouds(pair):
           for p, lab in ((src, slab), (tgt, tlab))]
     rj = semicp.align(cs[0], cs[1], cj)
     tcfg = config_from_dict(dataclasses.asdict(cj))
-    tc = [cloud_from_numpy(c.xyz, c.label, c.cov6, c.valid, c.count, layout=c.layout)
+    tc = [cloud_from_numpy(c.xyz, c.label, c.cov6, c.valid, c.count, layout=c.layout, device="cpu")
           for c in cs]
     for c, j in zip(tc, cs):
         np.testing.assert_array_equal(c.cov6.numpy(), np.asarray(j.cov6))
@@ -143,8 +145,10 @@ def test_sparse_engine_on_cpu_sorts_raw_source(pair):
     target; a raw source is sorted inside align as in the JAX package."""
     src, slab, tgt, tlab, T_gt = pair
     ct = semicp_torch.Config().override({**OVER, "corr.engine": "sparse"})
-    s = semicp_torch.preprocess_cloud(semicp_torch.make_cloud(src, slab, n_pad=2048), ct.cov)
-    t = semicp_torch.preprocess_cloud(semicp_torch.make_cloud(tgt, tlab, n_pad=2048), ct)
+    s = semicp_torch.preprocess_cloud(semicp_torch.make_cloud(src, slab, n_pad=2048,
+                                                              device="cpu"), ct.cov)
+    t = semicp_torch.preprocess_cloud(semicp_torch.make_cloud(tgt, tlab, n_pad=2048,
+                                                              device="cpu"), ct)
     assert s.layout == "raw"
     res = semicp_torch.make_align_fn(ct)(s, t)
     terr, rerr = pose_errors(res.T.numpy(), T_gt)
@@ -159,8 +163,10 @@ def test_padding_invariance(pair):
     Ts = []
     for n_pad in (2048, 4096):
         cfg = semicp_torch.Config().override({**OVER, "cloud.n_pad": n_pad})
-        s = semicp_torch.preprocess_cloud(semicp_torch.make_cloud(src, slab, n_pad=n_pad), cfg)
-        t = semicp_torch.preprocess_cloud(semicp_torch.make_cloud(tgt, tlab, n_pad=n_pad), cfg)
+        s = semicp_torch.preprocess_cloud(semicp_torch.make_cloud(src, slab, n_pad=n_pad,
+                                                                  device="cpu"), cfg)
+        t = semicp_torch.preprocess_cloud(semicp_torch.make_cloud(tgt, tlab, n_pad=n_pad,
+                                                                  device="cpu"), cfg)
         Ts.append(semicp_torch.align(s, t, cfg).T.numpy())
     terr, rerr = pose_errors(Ts[0], Ts[1])
     assert terr < 5e-5 and rerr < 5e-5, (terr, rerr)
@@ -193,8 +199,10 @@ def test_semantics_disambiguate_corridor(rng):
     terr = {}
     for uniform in (False, True):
         cfg = semicp_torch.Config().override({**over, "em.uniform_semantics": uniform})
-        s = semicp_torch.preprocess_cloud(semicp_torch.make_cloud(src, slab, n_pad=2048), cfg)
-        t = semicp_torch.preprocess_cloud(semicp_torch.make_cloud(tgt, tlab, n_pad=2048), cfg)
+        s = semicp_torch.preprocess_cloud(semicp_torch.make_cloud(src, slab, n_pad=2048,
+                                                                  device="cpu"), cfg)
+        t = semicp_torch.preprocess_cloud(semicp_torch.make_cloud(tgt, tlab, n_pad=2048,
+                                                                  device="cpu"), cfg)
         terr[uniform] = pose_errors(semicp_torch.align(s, t, cfg).T.numpy(), T_gt)[0]
     assert terr[False] < 0.15, terr
     assert terr[True] > 2 * terr[False], terr

@@ -1,0 +1,242 @@
+"""What surrounds the per-warp chunk walks of kernels K1 and K2, on the CPU.
+
+The kernels run only on a card. Their culling has a plain mirror in the
+package (`nn_walked_chunks`, `moments_walked_chunks`, in the kernels'
+float32 arithmetic), and these tests hold it to the kernels' contracts:
+the 32-point chunk boxes and class ranges lower-bound every pair, empty
+and scattered chunks are culled rather than NaN, and walking only the
+kept chunks gives the plain NN within the gate (tolerances of
+`chip_smoke.compare_nn`: d2 rtol 1e-4, atol 1e-3) and the plain moments
+at the covariance level (`compare_moments`: atol 1e-5 + rtol 1e-3). Also
+the order of K2's 64-bit merge key, and the card as the default device.
+"""
+
+import inspect
+
+import numpy as np
+import pytest
+import torch
+
+import semicp_torch
+from semicp_torch.cloud.cloud import make_cloud
+from semicp_torch.cloud.moments import chunk_inputs, moments_plain, moments_walked_chunks
+from semicp_torch.convert import cloud_from_numpy
+from semicp_torch.corr.bruteforce import INF
+from semicp_torch.corr.layout import (
+    CHUNK,
+    box_gap2,
+    pack_boxes,
+    sort_cloud_cm,
+    tile_candidates,
+    tile_meta,
+)
+from semicp_torch.corr.morton import tile_aabbs
+from semicp_torch.corr.nn_sparse import (
+    class_nn_attrs_plain,
+    nn_walked_chunks,
+    pack_key,
+    prepare_sparse,
+)
+from semicp_torch.data import make_pair, make_scene
+
+RTOL, ATOL = 1e-4, 1e-3          # chip_smoke.compare_nn
+COV_ATOL, COV_RTOL = 1e-5, 1e-3  # chip_smoke.compare_moments
+K = 6
+DELTA = np.array([0.5, -0.2, 0.05, 0.01, -0.02, 0.04])
+
+
+def skewed_scene(rng, n):
+    """Most points in one dense 2 m ball, the rest spread over 40 m: a
+    density skew that makes some warps far heavier than others."""
+    m = int(0.7 * n)
+    dense = rng.normal(size=(m, 3)) * 0.6
+    sparse = rng.uniform(-20, 20, size=(n - m, 3))
+    xyz = np.concatenate([dense, sparse]).astype(np.float32)
+    return xyz, rng.integers(0, K, size=n).astype(np.int32)
+
+
+def pair(kind, rng, n_pad):
+    """(source cloud, target cloud), cm-sorted, on the CPU. "past": the
+    bench pair with the labels of 5% of each cloud set past the classes
+    (K to K + 2), which the NN must ignore and the moments match label to
+    label."""
+    if kind == "skewed":
+        xyz, lab = skewed_scene(rng, int(0.93 * n_pad))
+    else:
+        xyz, lab = make_scene(rng, n_points=int(0.93 * n_pad), extent=16.0, n_classes=K)
+        lab = lab - 1
+    src, slab, _ = make_pair(rng, xyz, lab, DELTA, noise=0.02, dropout=0.1, n_classes=K)
+    if kind == "past":           # one end of the scene, so they have neighbours
+        for p, lb in ((src, slab), (xyz, lab)):
+            sel = p[:, 0] > np.quantile(p[:, 0], 0.95)
+            lb[sel] = K + rng.integers(0, 3, size=int(sel.sum()))
+    return [sort_cloud_cm(make_cloud(p, lb, n_pad, device="cpu"), K, 2.0)
+            for p, lb in ((src, slab), (xyz, lab))]
+
+
+def ranges_inside(box, hi):
+    """Every non-empty box's class range lies inside [0, hi]."""
+    cmin, cmax = box[:, 3], box[:, 7]
+    full = cmin <= cmax
+    return bool(full.any()) and bool(torch.all((cmin[full] >= 0) & (cmax[full] <= hi)))
+
+
+def expand(walked):
+    """(warp, chunk) mask -> (query, target) mask."""
+    return walked.repeat_interleave(CHUNK, 0).repeat_interleave(CHUNK, 1)
+
+
+@pytest.mark.parametrize("kind", ["bench", "skewed", "scattered"])
+def test_chunk_boxes_lower_bound_every_pair(rng, kind):
+    """Each chunk's box and class range hold its valid points; the point-to-
+    box distance never exceeds a pair distance; all-invalid chunks are
+    +inf away (never NaN) and so culled."""
+    n = 2048
+    xyz, lab = skewed_scene(rng, n) if kind == "skewed" else make_scene(
+        rng, n_points=n, extent=12.0, n_classes=K)
+    c = make_cloud(xyz, np.clip(lab - (kind != "skewed"), 0, K - 1), n_pad=n, device="cpu")
+    valid = c.valid.clone()
+    if kind == "scattered":      # NDT's voxel targets: valid scattered over the capacity
+        valid &= torch.from_numpy(rng.uniform(size=n) > 0.6)
+        valid[256:512] = False   # and whole chunks empty
+    elif kind == "bench":
+        c = sort_cloud_cm(c, K, 2.0)
+        valid = c.valid
+    box = pack_boxes(tile_meta(c.xyz, c.label, valid, K, CHUNK))
+    nc = n // CHUNK
+    pts = c.xyz.T                                                   # (n, 3)
+    g = box_gap2(pts[:, None, :], pts[:, None, :], box[None, :, 0:3], box[None, :, 4:7])
+    assert not torch.isnan(g).any()
+    d2 = torch.sum((pts[:, None, :] - pts[None, :, :]) ** 2, dim=-1)  # (n, n)
+    chunk_of = torch.arange(n) // CHUNK
+    lower = g[:, chunk_of]                                          # (n, n)
+    assert bool(torch.all(lower[:, valid] <= d2[:, valid] + 1e-4))
+    lab_c = c.label.reshape(nc, CHUNK)
+    v_c = valid.reshape(nc, CHUNK)
+    cmin, cmax = box[:, 3][:, None], box[:, 7][:, None]
+    assert bool(torch.all(~v_c | ((lab_c >= cmin) & (lab_c <= cmax))))
+    empty = ~v_c.any(dim=1)
+    assert (kind != "scattered") or bool(empty.any())
+    assert bool(torch.all(torch.isinf(g[:, empty]))) and bool(torch.all(cmin[empty] > cmax[empty]))
+
+
+@pytest.mark.parametrize("kind", ["bench", "skewed", "past"])
+def test_nn_walk_of_kept_chunks_equals_plain(rng, kind):
+    """K2's walk over only the chunks its culling keeps gives the plain
+    per-class NN within the gate (d2 and winner; near-ties as in
+    chip_smoke), and beyond the gate never a closer one. Targets labelled
+    past the classes stay out of every box and class range (the kernel's
+    per-class slots are never indexed past K) and never win."""
+    gate = 2.0
+    src, tgt = pair(kind, rng, 4096)
+    prep = prepare_sparse(tgt, K, 2.0)
+    assert ranges_inside(prep["chunk_box"], K - 1) and ranges_inside(prep["tile_box"], K - 1)
+    past = tgt.valid & (tgt.label >= K)
+    assert (kind != "past") == (not bool(past.any()))
+    assert bool(torch.all(torch.isinf(prep["pts4"][past, 3])))
+    q, qv = src.xyz, src.valid
+    walked = nn_walked_chunks(prep, q, qv, gate)
+    # fewer pairs than the candidate tile lists of the first port
+    qlo, qhi = tile_aabbs(q, qv, 256)
+    cand_count = tile_candidates(qlo, qhi, prep["lo"], prep["hi"], gate)[1]
+    tb = prep["xyz_s"].shape[1] // prep["tile_box"].shape[0]
+    assert int(walked.sum()) * CHUNK * CHUNK < int(cand_count.sum()) * 256 * tb
+    assert bool(walked.any())
+
+    label_s, xyz_s = prep["label_s"], prep["xyz_s"]
+    t2 = torch.sum(xyz_s * xyz_s, dim=0)
+    q2 = torch.sum(q * q, dim=0)
+    d2 = q2[:, None] + t2[None, :] - 2.0 * (q.T @ xyz_s)            # class_nn's form
+    pairs = expand(walked)
+    d2_e = torch.full((K, q.shape[1]), INF)
+    idx_e = torch.zeros((K, q.shape[1]), dtype=torch.int64)
+    for k in range(K):
+        dk = torch.where(pairs & (label_s == k)[None, :], d2, torch.full_like(d2, INF))
+        d2_e[k], idx_e[k] = torch.min(dk, dim=1)
+    rows = prep["attrs16"][:10]
+    at_e = torch.where((d2_e < INF)[:, None, :], rows[:, idx_e].movedim(0, 1), 0.0)
+
+    d2_p, at_p = class_nn_attrs_plain(xyz_s, label_s, label_s < K, prep["attrs16"][3:9], q, K)
+    inside = (d2_p <= gate * gate * (1.0 - 1e-5)) & qv[None, :]
+    assert bool(inside.any())
+    err = torch.abs(d2_e - d2_p)[inside]
+    assert bool(torch.all(err <= ATOL + RTOL * torch.abs(d2_p[inside])))
+    same = torch.all(at_e == at_p[:, :10], dim=1) & inside
+    ties = inside & ~same
+    assert int(ties.sum()) <= 0.01 * int(inside.sum())
+    wd2 = torch.sum((at_e[:, 0:3, :] - q[None]) ** 2, dim=1)
+    assert bool(torch.all(torch.abs(wd2 - d2_p)[ties] <= ATOL + RTOL * torch.abs(d2_p[ties])))
+    outside = ~inside & qv[None, :]
+    assert bool(torch.all(d2_e[outside] >= d2_p[outside] * (1 - RTOL) - ATOL))
+
+
+def cov64(m):
+    n = torch.clamp(m[0], min=1.0)
+    mx, my, mz = m[1] / n, m[2] / n, m[3] / n
+    return torch.stack([m[4] / n - mx * mx, m[5] / n - my * my, m[6] / n - mz * mz,
+                        m[7] / n - mx * my, m[8] / n - mx * mz, m[9] / n - my * mz])
+
+
+@pytest.mark.parametrize("kind", ["bench", "skewed", "past"])
+def test_moments_walk_of_kept_chunks_equals_plain(rng, kind):
+    """K1's walk over only the chunks its culling keeps holds every same-
+    label pair within the radius, and its query-centred moments give the
+    plain covariances. Labels past the classes share the culling's bucket
+    K (its tables hold K + 1 entries) and still match only their own."""
+    _, c = pair(kind, rng, 2048)
+    label = torch.clamp(c.label, min=0)
+    r = 0.3 if kind == "skewed" else 0.6
+    walked = moments_walked_chunks(c.xyz, label, c.valid, r, K)
+    a = chunk_inputs(c.xyz, label, c.valid, K)
+    assert ranges_inside(a["chunk_box"], K)
+    span = a["span"].long()
+    assert int(walked.sum()) < int(torch.clamp(span[:, 1] - span[:, 0] + 1, min=0).sum())
+
+    x = c.xyz.double()
+    diff = x[:, None, :] - x[:, :, None]                  # (3, query, target) offsets
+    d2 = torch.sum(diff * diff, dim=0)
+    same = (label[:, None] == label[None, :]) & c.valid[:, None] & c.valid[None, :]
+    near = same & (d2 < r * r)
+    past = near & (label >= K)[:, None]
+    assert (kind != "past") == (int(past.sum()) <= int(torch.diagonal(past).sum()))
+    assert not bool((near & ~expand(walked)).any()), "the culling dropped a neighbour"
+    w = (near & expand(walked)).double()
+    feats = [w.sum(1)] + [(w * diff[i]).sum(1) for i in range(3)]
+    feats += [(w * diff[i] * diff[j]).sum(1) for i, j in ((0, 0), (1, 1), (2, 2),
+                                                          (0, 1), (0, 2), (1, 2))]
+    m_e = torch.stack(feats)
+    m_p = moments_plain(x, label, c.valid, r)
+    assert torch.equal(m_e[0], m_p[0])
+    sel = c.valid & (m_p[0] >= 3)
+    ce, cp = cov64(m_e)[:, sel], cov64(m_p)[:, sel]
+    assert bool(torch.all(torch.abs(ce - cp) <= COV_ATOL + COV_RTOL * torch.abs(cp)))
+
+
+def test_pack_key_orders_as_d2_then_index(rng):
+    """K2's merge key orders lexicographically by (d2, index), with
+    negative d2 (expanded-form cancellation), -0 == +0, and exact ties."""
+    d2 = np.concatenate([rng.normal(size=300).astype(np.float32) * 4,
+                         np.float32([-1e-3, -0.0, 0.0, 0.0, 1.0, 1.0, 1.0, INF, INF, -3e-7])])
+    d2 = np.concatenate([d2, d2[:50]])                     # exact ties at other indices
+    idx = rng.permutation(len(d2)).astype(np.int64)
+    key = pack_key(torch.from_numpy(d2), torch.from_numpy(idx))
+    order = torch.argsort(key).numpy()
+    ref = np.lexsort((idx, d2 + np.float32(0.0)))          # -0 + 0 = +0
+    np.testing.assert_array_equal(order, ref)
+    assert len(np.unique(key.numpy())) == len(key)
+
+
+def test_make_cloud_defaults_to_the_card():
+    """Entry points run on the card unless the caller asks for the CPU:
+    without a card, the default raises rather than falling back."""
+    for fn in (make_cloud, semicp_torch.make_cloud, cloud_from_numpy):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    xyz = np.zeros((10, 3), np.float32)
+    if torch.cuda.is_available():
+        assert make_cloud(xyz, n_pad=32).device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            make_cloud(xyz, n_pad=32)
+        with pytest.raises((AssertionError, RuntimeError)):
+            cloud_from_numpy(xyz.T, np.zeros(10), np.zeros((6, 10)), np.ones(10, bool), 10)
+    assert make_cloud(xyz, n_pad=32, device="cpu").device.type == "cpu"
