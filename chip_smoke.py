@@ -11,10 +11,11 @@ Phases (any failure raises and exits non-zero):
    20 classes), K5 at n_pad 32768 and 2048, K4 at n_pad 2048; each with
    its wrapper's time, its kernels' device time alone (torch.profiler),
    its bound on the card and the share of it reached, and for the
-   data-dependent walks (K1, K2) the pairs walked, held equal to the plain
-   mirror of their culling; K1 and K2 again with 1% of the target's labels
-   past the classes; then K2 against K4 at n_pad 2048 to 32768 (the
-   dense/sparse crossover);
+   data-dependent walks (K1, K2, K6) the pairs walked, read from the
+   device and held equal to the plain mirror of their culling; K6 also
+   against K2 then K3 (bit-equal or not, and time in turns); K1 and K2
+   again with 1% of the target's labels past the classes; then K2 against
+   K4 at n_pad 2048 to 32768 (the dense/sparse crossover);
 4. the main path at full size: a 120k-point, 20-class scan pair through
    make_cloud -> preprocess_cloud -> make_align_fn(cfg)(src, tgt), with
    the kernel launch counts of that run, the ground-truth error, the
@@ -27,9 +28,12 @@ Phases (any failure raises and exits non-zero):
    its launch counts, host syncs, and the card against the CPU;
 7. the map-scale path: a 500000-point, 20-class pair at n_pad 524288
    through preprocess_cloud (K1) and the fused E-step (K6), with its
-   launch counts and host syncs; K6 against K2 then K3 at 524288 queries;
-   the same pair through the split path, with T and the peak device
-   memory of both;
+   launch counts and host syncs; the same pair through the split path,
+   with the time per align in turns, T and the peak device memory of
+   both; then one E-step at 524288 queries: K6's walked pairs against
+   the plain mirror of its culling, its planes against K2 then K3 at
+   every point and against the plain version on 4096 query columns, and
+   its time against K2 then K3 in turns;
 8. frame-to-frame odometry at full width: a 20-frame KITTI-layout
    sequence of 120000-point scans with raw SemanticKITTI labels, written
    to a temporary directory and run through semicp_torch.cli.run_odometry
@@ -78,7 +82,6 @@ from semicp_torch.corr.nn_sparse import (
     class_nn_attrs_sparse,
     nn_walked_chunks,
     prepare_sparse,
-    query_candidates,
 )
 from semicp_torch.cli import run_odometry
 from semicp_torch.data import (
@@ -107,6 +110,7 @@ BATCH_POINTS, BATCH_PAD, BATCH_EXTENT = 30000, 32768, 20.0
 # phase 7: map scale (em.fused_auto_min_q = 2^19), the bench scene's density
 MAP_POINTS, MAP_PAD, MAP_EXTENT = 500000, 524288, 80.0
 MAP_REPEATS = 3
+MAP_PLAIN_COLS = 4096   # query columns where K6 is held to its plain version at map scale
 # phase 8: the odometry sequence (KITTI layout), and the card-vs-CPU one
 SEQ_FRAMES, SEQ_SCENE, SEQ_EXTENT, SEQ_RANGE, SEQ_SCAN, SEQ_PAD = 20, 480000, 30.0, 25.0, 120000, N_PAD
 # (1900 points within 8 m: at 14 m one pair had two EM fixed points 2e-4
@@ -133,7 +137,8 @@ DEVICE_KERNELS = {
                        "moments_walk_kernel"),
     "nn_sparse": ("nn_items_kernel", "nn_walk_kernel", "nn_gather_kernel"),
     "estep_reduce": ("estep_reduce_kernel",), "moments_dense": ("moments_dense_kernel",),
-    "nn_dense": ("nn_dense_kernel",), "estep_fused": ("estep_fused_kernel",)}
+    "nn_dense": ("nn_dense_kernel",),
+    "estep_fused": ("nn_items_kernel", "nn_walk_kernel", "estep_keys_kernel")}
 
 
 def card_line() -> str:
@@ -166,14 +171,21 @@ def kernel_ms(name, fn, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    split = dict.fromkeys(DEVICE_KERNELS[name], 0.0)
+    times = {k: [] for k in DEVICE_KERNELS[name]}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            for k in split:
+            for k, ts in times.items():
                 if k in e.name:
-                    split[k] += e.time_range.elapsed_us() / 1e3 / reps
+                    ts.append(e.time_range.elapsed_us() / 1e3)
+    missing = [k for k, ts in times.items() if not ts]
+    assert not missing, f"torch.profiler recorded no device time for {missing}"
+    # each kernel launches once a call: its mean over the launches the
+    # profiler recorded (it has been seen to drop some of a short window's)
+    lost = {k: f"{len(ts)} of {reps}" for k, ts in times.items() if len(ts) != reps}
+    if lost:
+        print(f"{name}: torch.profiler recorded launches {lost}")
+    split = {k: sum(ts) / len(ts) for k, ts in times.items()}
     total = sum(split.values())
-    assert total > 0, f"torch.profiler recorded no device time for {DEVICE_KERNELS[name]}"
     if len(split) > 1:
         print(f"{name}: device ms per call by kernel {split}")
     return total
@@ -398,10 +410,8 @@ def check_k2_k3(src, tgt, cfg, results):
     outside = ~inside & qv[None, :]
     ok_out = bool(torch.all(d2_k[outside] >= d2_p[outside] * (1 - rtol) - atol))
     mirror = int(nn_walked_chunks(prep, q, qv, gate).sum()) * CHUNK * CHUNK
-    _, count, tb = query_candidates(prep, q, qv, gate, "chip_smoke")
-    first = int(count.sum()) * 256 * tb
     print(f"K2 nn_sparse: beyond-gate never closer: {ok_out}; walked {walked} pairs, the plain "
-          f"mirror of its culling {mirror}, the first port's tile lists {first}")
+          f"mirror of its culling {mirror}")
     assert ok_out, "K2 reports a neighbour closer than the plain minimum"
     assert walked == mirror, "K2's walk differs from the plain mirror of its culling"
     found = int((d2_k < 1e30).sum())
@@ -461,33 +471,49 @@ def check_past_labels(src, tgt, cfg):
     print(f"K1, K2 with {tag}: both hold the plain versions; walks equal the mirrors")
 
 
+def near_ties(at_s, at_p, q, qv, gate):
+    """(Q,) valid points where, for a class within the gate, the plain NN
+    (rows at_p) picks another winner than K2's walk (rows at_s), which K6
+    runs too. Their covariances, and so the E-step's planes, may differ by
+    far more than rounding."""
+    differs = ~torch.all(at_s == at_p, dim=1)                    # (K, Q)
+    gated = torch.zeros_like(differs)
+    for at in (at_s, at_p):
+        d = at[:, 0:3, :] - q[None]
+        gated |= (torch.sum(d * d, dim=1) <= gate * gate) & (at[:, 9, :] == 1.0)
+    return torch.any(differs & gated, dim=0) & qv
+
+
 def check_k6(src, tgt, cfg, results):
     """K6 against estep_fused_plain on all points of the first E-step
-    (T = I) of the bench pair, except at near-ties: points where, for a
-    class within the gate, the plain NN picks another winner than K2's walk
-    (which K6 runs) within the d2 tolerance. Their covariances, and so the
-    planes, may differ by far more than rounding; there K6 is held against
-    K2 then K3 instead, as it is at every point."""
+    (T = I) of the bench pair, except at near-ties (`near_ties`); there K6
+    is held against K2 then K3 instead, as it is at every point. K6's
+    walked chunks, read from the device, must equal the plain mirror of
+    the walk's culling."""
     K = cfg.cloud.num_classes
     gate = cfg.corr.max_dist
     prep = prepare_sparse(tgt, K, cfg.corr.cell)
     q, qv = src.xyz, src.valid
     log_sem = _log_sem(src, cfg)
     args = (prep, q, qv, src.cov6, log_sem, K, gate)
-    out_k = estep_sparse_fused(*args)
+    gate2 = torch.full((), gate * gate, device=q.device)
+
+    def fused_estep():
+        return estep_sparse_fused(*args)
+
+    def split_estep():
+        return estep_reduce(*class_nn_attrs_sparse(prep, q, qv, K, gate), src.cov6, q, log_sem,
+                            qv, gate2)
+
+    out_k = fused_estep()
+    walked = int(kernels.WALKED["estep_fused"]) * CHUNK * CHUNK
     out_p, plain_ms = host_ms(lambda: estep_fused_plain(*args))
     d2_s, at_s = class_nn_attrs_sparse(prep, q, qv, K, gate)
-    out_s = estep_reduce(d2_s, at_s, src.cov6, q, log_sem, qv,
-                         torch.full((), gate * gate, device=q.device))
+    out_s = estep_reduce(d2_s, at_s, src.cov6, q, log_sem, qv, gate2)
     label_s = prep["label_s"]
-    d2_p, at_p = class_nn_attrs_plain(prep["xyz_s"], label_s, label_s < K,
-                                      prep["attrs16"][3:9], q, K)
-    differs = ~torch.all(at_s == at_p, dim=1)                    # (K, Q)
-    gated = torch.zeros_like(differs)
-    for at in (at_s, at_p):
-        d = at[:, 0:3, :] - q[None]
-        gated |= (torch.sum(d * d, dim=1) <= gate * gate) & (at[:, 9, :] == 1.0)
-    tie = torch.any(differs & gated, dim=0) & qv                 # (Q,)
+    _, at_p = class_nn_attrs_plain(prep["xyz_s"], label_s, label_s < K,
+                                   prep["attrs16"][3:9], q, K)
+    tie = near_ties(at_s, at_p, q, qv, gate)
     keep = ~tie
     max_abs = compare_estep(
         f"K6 estep_fused against plain (bench shape, {int(keep.sum())} points; "
@@ -495,21 +521,21 @@ def check_k6(src, tgt, cfg, results):
         [o[..., keep] for o in out_k], [o[..., keep] for o in out_p])
     max_abs = max(max_abs, compare_estep("K6 estep_fused against K2 then K3 (bench shape, "
                                          "all points)", out_k, out_s))
-    ms = cuda_ms(lambda: estep_sparse_fused(*args), 20)
-    # the NN work the function needs is the pairs the exact per-warp
-    # culling keeps (K2's); K6 itself walks the first port's candidate
-    # tiles in full, 256 x tb pairs a tile, a count derived here from the
-    # tile lists and not read from the kernel
-    need = int(nn_walked_chunks(prep, q, qv, gate).sum()) * CHUNK * CHUNK
-    _, count, tb = query_candidates(prep, q, qv, gate, "chip_smoke")
-    print(f"K6 estep_fused: its tile lists hold {int(count.sum()) * 256 * tb} pairs (derived), "
-          f"the per-warp culling keeps {need}")
+    bit_equal = all(torch.equal(a, b) for a, b in zip(out_k, out_s))
+    mirror = int(nn_walked_chunks(prep, q, qv, gate).sum()) * CHUNK * CHUNK
+    print(f"K6 estep_fused: bit-equal to K2 then K3: {bit_equal}; walked {walked} pairs, the "
+          f"plain mirror of its culling {mirror}")
+    assert walked == mirror, "K6's walk differs from the plain mirror of its culling"
+    t = [cuda_ms(f, 20) for f in (fused_estep, split_estep, split_estep, fused_estep)]
+    ms = t[0]
+    print(f"K6 estep_fused: one E-step at the bench shape ({q.shape[1]} queries), in turns: "
+          f"K6 {t[0]:.4f} / {t[3]:.4f} ms, K2 then K3 {t[1]:.4f} / {t[2]:.4f} ms")
     flops, nbytes, found = estep_cost(d2_s, q.shape[1], K, gate)
     nbytes += 20 * tgt.n_pad + 36 * found + 4 * K * q.shape[1]   # the walk and the log-prior
     results.append(kernel_entry(
         "estep_fused", "semicp_torch/csrc/estep_fused.cu", "semicp/register/pallas_fused.py:230",
-        max_abs, ms, kernel_ms("estep_fused", lambda: estep_sparse_fused(*args), 20), plain_ms,
-        flops + FLOP_NN_PAIR * need, nbytes))
+        max_abs, ms, kernel_ms("estep_fused", fused_estep, 20), plain_ms,
+        flops + FLOP_NN_PAIR * mirror, nbytes, walked))
 
 
 def small_pair(n_points, n_pad, extent, cfg, dev, cov_only):
@@ -641,9 +667,9 @@ def peak_align(align_fn, src, tgt):
 
 
 def phase7(dev, results):
-    """The map-scale path through K6, counted; then K6 against K2 -> K3 at
-    its shape, and the split path's T, time and peak memory. Returns the
-    fused path's launches."""
+    """The map-scale path through K6, counted; the split path's T, time
+    and peak memory; then K6 at its shape against the mirror of its walk,
+    K2 -> K3 and the plain version. Returns the fused path's launches."""
     cfg = semicp_torch.Config().override({"cloud.n_pad": MAP_PAD,
                                           "cloud.num_classes": N_CLASSES, "em.max_iters": 20})
     K = N_CLASSES
@@ -699,8 +725,10 @@ def phase7(dev, results):
     assert diff <= 1e-4, diff
     assert peak_f < peak_s, "the fused path did not lower the peak device memory"
 
-    # K6 against K2 then K3 at the map-scale shape (the plain version is
-    # too slow here), on the first E-step (T = I)
+    # K6 at the map-scale shape, on the first E-step (T = I): its walk
+    # against the plain mirror, its planes against K2 then K3 at every
+    # point and against the plain version on MAP_PLAIN_COLS query columns
+    # spread over the cloud and its warps' lanes, off the near-ties
     gate = cfg.corr.max_dist
     prep = prepare_sparse(tgt, K, cfg.corr.cell)
     log_sem = _log_sem(src, cfg)
@@ -714,11 +742,34 @@ def phase7(dev, results):
     def fused_estep():
         return estep_sparse_fused(prep, q, qv, src.cov6, log_sem, K, gate)
 
+    out_k = fused_estep()
+    walked = int(kernels.WALKED["estep_fused"]) * CHUNK * CHUNK
+    mirror = int(nn_walked_chunks(prep, q, qv, gate).sum()) * CHUNK * CHUNK
+    print(f"phase 7: K6 at {MAP_PAD} queries walked {walked} pairs, the plain mirror of its "
+          f"culling {mirror}")
+    assert walked == mirror, "K6's walk differs from the plain mirror of its culling"
     max_abs = compare_estep(f"K6 estep_fused against K2 then K3 at {MAP_PAD} queries",
-                            fused_estep(), split_estep())
+                            out_k, split_estep())
+    i = torch.arange(MAP_PLAIN_COLS, device=dev)
+    stride = q.shape[1] // MAP_PLAIN_COLS
+    cols = i * stride + i % stride
+    qc, qvc = q[:, cols].contiguous(), qv[cols]
+    args = (qc, qvc, src.cov6[:, cols].contiguous(), log_sem[:, cols].contiguous(), K, gate)
+    out_p, plain_ms = host_ms(lambda: estep_fused_plain(prep, *args))
+    _, at_s = class_nn_attrs_sparse(prep, q, qv, K, gate)
+    label_s = prep["label_s"]
+    _, at_p = class_nn_attrs_plain(prep["xyz_s"], label_s, label_s < K,
+                                   prep["attrs16"][3:9], qc, K)
+    keep = ~near_ties(at_s[..., cols], at_p, qc, qvc, gate)
+    max_abs = max(max_abs, compare_estep(
+        f"K6 estep_fused against plain at {MAP_PAD} queries ({int(keep.sum())} of "
+        f"{MAP_PLAIN_COLS} columns, {int(qvc.sum())} valid; near-ties left out; plain "
+        f"{plain_ms:.1f} ms)",
+        [o[..., cols][..., keep] for o in out_k], [o[..., keep] for o in out_p]))
     t = [cuda_ms(f, 5) for f in (fused_estep, split_estep, split_estep, fused_estep)]
-    print(f"phase 7: one E-step at {MAP_PAD} queries: K6 {t[0]:.3f} / {t[3]:.3f} ms, "
-          f"K2 then K3 {t[1]:.3f} / {t[2]:.3f} ms")
+    k_ms = kernel_ms("estep_fused", fused_estep, 5)
+    print(f"phase 7: one E-step at {MAP_PAD} queries: K6 {t[0]:.3f} / {t[3]:.3f} ms "
+          f"(its kernels alone {k_ms:.3f} ms), K2 then K3 {t[1]:.3f} / {t[2]:.3f} ms")
     entry = next(r for r in results if r["name"] == "estep_fused")
     entry["max_abs_err"] = max(entry["max_abs_err"], max_abs)
     return launches

@@ -9,9 +9,8 @@ order of meters).
 
 This is the JAX package's `semicp/config.py`, copied so that the two
 packages share one configuration schema (`config_from_dict` carries a
-JAX-side config across). The timings quoted in the field comments were
-measured for the JAX package on a TPU; none of them is a measurement of
-this package.
+JAX-side config across), with the JAX package's default values. What the
+dispatch thresholds cost on the card is measured in PERF.md.
 """
 
 from __future__ import annotations
@@ -36,7 +35,7 @@ class CovConfig:
     """GICP plane-to-plane per-point covariance estimation (SURVEY.md §2.2 step 1).
 
     method "radius": one-pass masked moment accumulation over a fixed
-    radius (the TPU-native fused kernel, cloud/pallas_cov.py).
+    radius (the fused moments kernel, cloud/moments.py).
     method "knn": the reference's k-nearest-neighbor semantics
     (corr/bruteforce.knn_self) — used for like-for-like oracle parity.
     Both feed the same (1,1,eps) eigenvalue clamp, which keeps only the
@@ -54,21 +53,18 @@ class CovConfig:
 class CorrConfig:
     """Correspondence engine (replaces per-class kd-trees).
 
-    engine "auto": Morton block-sparse Pallas NN for large clouds,
-    dense class-sorted Pallas NN for small ones (XLA fallback on CPU).
-    "dense" / "sparse" force a kernel (interpret-mode on CPU — used by
-    CI to pin the full sparse EM path); "xla" forces the gather
-    fallback (the ring-correspondence / CPU-mesh path).
+    engine "auto": the Morton block-sparse NN kernel for large clouds,
+    the dense class-sorted one for small ones (the plain path on CPU).
+    "dense" / "sparse" force a kernel (its plain version on CPU tensors,
+    which the tests use to pin the sparse EM path); "xla" forces the
+    plain gather path, for CPU tensors.
     """
 
     engine: str = "auto"        # auto | dense | sparse | xla
     max_dist: float = 2.0       # max correspondence distance gate (m)
     cell: float = 2.0           # Morton quantization cell (locality only, not correctness)
-    sparse_min_n: int = 4096    # auto: block-sparse kernel at/above this n_pad
-                                # (r5 on-chip crossover: sparse 3.5 vs dense
-                                # 16.4 ms/align at 4096; dense still wins at
-                                # 2048 where the candidate walk's fixed cost
-                                # exceeds one small dense grid)
+    sparse_min_n: int = 4096    # auto: the block-sparse kernel at and above
+                                # this n_pad, the dense class-sorted one below
 
 
 @dataclass(frozen=True)
@@ -81,19 +77,14 @@ class EMConfig:
     uniform_semantics: bool = False  # True => plain GICP ablation (uniform class weights)
     retry_overlap_frac: float = 0.8  # warm-start recovery: retry from identity when
                                      # n_corr < frac * min(|src|,|tgt|) (0 disables)
-    fused_estep: bool = False   # sparse engine: run NN+weights+reduce as ONE
-                                # kernel (register/pallas_fused.py) — bitwise-
-                                # equal, skips the (K,16,Q) HBM intermediate;
-                                # ~6 ms/align slower at the 131k bench (r5:
-                                # 85.5 vs 79.2), so it dispatches by need
-    fused_auto_min_q: int = 1 << 19  # auto-use the fused E-step at query
-                                # counts where the split path's (K,16,Q)
-                                # f32 intermediate starts to matter (0.67 GB
-                                # at 512k queries / K=20, x2 live during the
-                                # reduce) — measured time-neutral there
-                                # (323 vs 324 ms) while the fused footprint
-                                # stays O(clouds). Queries beyond 512k must
-                                # shard over the mesh (SMEM grid cap).
+    fused_estep: bool = False   # sparse engine: run NN+weights+reduce as one
+                                # fused E-step (register/fused.py), the split
+                                # path's contract without its (K,16,Q)
+                                # intermediate in device memory
+    fused_auto_min_q: int = 1 << 19  # sparse engine: the fused E-step at and
+                                # above this query count, where the split
+                                # path's (K,16,Q) f32 slab, 64*K*Q bytes, is
+                                # the largest buffer of an align
 
 
 @dataclass(frozen=True)

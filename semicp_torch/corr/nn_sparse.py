@@ -12,11 +12,12 @@ Port of the parts of `semicp/corr/pallas_nn2.py` on the main path.
   gather of the winner's rows. It is the CPU path and K2's reference.
 * `class_nn_attrs_sparse` launches K2 (csrc/nn_sparse.cu), which culls
   target chunks per query warp on the device.
-* `nn_walked_chunks` is the plain mirror of K2's culling: the (query
-  warp, target chunk) pairs the kernel walks. The CPU tests walk them to
-  show the culling exact; `chip_smoke.py` checks the kernel's count.
-* `query_candidates` builds the per-256-query-tile candidate tile lists
-  of the fused E-step (K6), which keeps the first port's walk.
+* `walk_args` checks and gathers the arguments of K2's walk, which the
+  fused E-step (K6, register/fused.py) runs too, with its scratch.
+* `nn_walked_chunks` is the plain mirror of the walk's culling: the
+  (query warp, target chunk) pairs K2 and K6 walk. The CPU tests walk them
+  to show the culling exact; `chip_smoke.py` checks the kernels' counts.
+* `pack_key` is the walk's 64-bit merge key as int64.
 
 Contract of both, per query and class k: d2 (K, Q), INF where the class
 has no candidate, and attrs (K, 16, Q) with the winner's x, y, z, cov6,
@@ -40,14 +41,12 @@ from semicp_torch.corr.layout import (
     limit2,
     pack_boxes,
     sort_cloud_cm,
-    tile_candidates,
     tile_meta,
 )
 from semicp_torch.corr.morton import tile_aabbs
 
-QB = 256     # query tile of K6 (csrc/common.cuh kQB)
-TB = 1024    # target tile: at most 32 chunks, one item of K2
-NATTR = 16   # attribute rows (csrc/nn_sparse.cu reads |t|^2 from row 10, the label from 11)
+TB = 1024    # target tile: at most 32 chunks, one item of the walk
+NATTR = 16   # attribute rows (x, y, z | cov6 | 1 | |t|^2 | label | 4 spare)
 
 
 def prepare_sparse(cloud, num_classes: int, cell: float) -> dict:
@@ -91,26 +90,6 @@ def class_nn_attrs_plain(tgt_xyz, tgt_label, tgt_valid, tgt_cov6, q_xyz, num_cla
     return d2, torch.cat([win, spare], dim=1)
 
 
-def query_candidates(prep: dict, q_xyz, q_valid, gate, who: str):
-    """Candidate target tiles of each 256-query tile within `gate` (the
-    walk of K6). Returns (cand, count, tb) after checking shapes."""
-    n = prep["xyz_s"].shape[1]
-    q = q_xyz.shape[1]
-    tb = n // prep["lo"].shape[0]
-    if q % QB:
-        raise ValueError(f"{who}: Q={q} must be a multiple of the query tile {QB} "
-                         f"(pad queries to a power of two >= {QB})")
-    if tb % QB or n % tb:
-        raise ValueError(f"{who}: target tile tb={tb} must be a multiple of {QB} "
-                         f"and divide N={n}")
-    qlo, qhi = tile_aabbs(q_xyz, q_valid, QB)
-    cand, count = tile_candidates(qlo, qhi, prep["lo"], prep["hi"], gate)
-    kernels.check(prep["attrs16"], "attrs16", torch.float32, (NATTR, n))
-    kernels.check(cand, "cand", torch.int32, (q // QB, n // tb))
-    kernels.check(count, "count", torch.int32, (q // QB,))
-    return cand, count, tb
-
-
 def class_nn_attrs_sparse(prep: dict, q_xyz, q_valid, num_classes: int, gate):
     """Block-sparse per-class NN over a prepared target (K2 on CUDA).
 
@@ -125,14 +104,35 @@ def class_nn_attrs_sparse(prep: dict, q_xyz, q_valid, num_classes: int, gate):
                                     prep["attrs16"][3:9], q_xyz, num_classes)
     dev = q_xyz.device
     n, q = prep["xyz_s"].shape[1], q_xyz.shape[1]
+    args, tb = walk_args(prep, q_xyz, q_valid, num_classes, gate, "class_nn_attrs_sparse")
+    args.update(
+        out_d2=torch.empty((num_classes, q), dtype=torch.float32, device=dev),
+        out_attr=torch.empty((num_classes, NATTR, q), dtype=torch.float32, device=dev))
+    p = {k: v.data_ptr() for k, v in args.items()}
+    # one entry: the item list, the walk and the gather
+    kernels.launch("semicp_nn_sparse", "nn_sparse", dev,
+                   p["pts4"], p["label_s"], p["attrs16"], p["tile_box"], p["chunk_box"],
+                   p["q_xyz"], p["q_valid"], p["gate"], n, q, tb, num_classes,
+                   p["keys"], p["items"], p["wbox"], p["counters"], p["out_d2"], p["out_attr"])
+    kernels.WALKED["nn_sparse"] = args["counters"][2:]
+    return args["out_d2"], args["out_attr"]
+
+
+def walk_args(prep: dict, q_xyz, q_valid, num_classes: int, gate, who: str):
+    """The walk's arguments on the device, checked: the prepared target,
+    the queries and the gate, and its scratch (keys (K, Q) int64, items,
+    wbox, counters), which the C entry clears itself. Applies the walk's
+    shape rules. Returns (args, tb)."""
+    dev = q_xyz.device
+    n, q = prep["xyz_s"].shape[1], q_xyz.shape[1]
     n_tt = prep["tile_box"].shape[0]
     tb = n // n_tt
     if q % CHUNK:
-        raise ValueError(f"class_nn_attrs_sparse: Q={q} must be a multiple of the query "
-                         f"warp {CHUNK} (pad queries to a power of two >= {CHUNK})")
+        raise ValueError(f"{who}: Q={q} must be a multiple of the query warp {CHUNK} "
+                         f"(pad queries to a power of two >= {CHUNK})")
     if tb % CHUNK or tb > CHUNK * CHUNK or n % tb:
-        raise ValueError(f"class_nn_attrs_sparse: target tile tb={tb} must be a multiple "
-                         f"of {CHUNK}, at most {CHUNK * CHUNK}, and divide N={n}")
+        raise ValueError(f"{who}: target tile tb={tb} must be a multiple of {CHUNK}, "
+                         f"at most {CHUNK * CHUNK}, and divide N={n}")
     args = {"pts4": prep["pts4"], "label_s": prep["label_s"], "attrs16": prep["attrs16"],
             "tile_box": prep["tile_box"], "chunk_box": prep["chunk_box"],
             "q_xyz": q_xyz.contiguous(), "q_valid": q_valid,
@@ -148,25 +148,17 @@ def class_nn_attrs_sparse(prep: dict, q_xyz, q_valid, num_classes: int, gate):
         keys=torch.empty((num_classes, q), dtype=torch.int64, device=dev),
         items=torch.empty((nw * n_tt,), dtype=torch.int32, device=dev),
         wbox=torch.empty((nw, 8), dtype=torch.float32, device=dev),
-        counters=torch.empty((3,), dtype=torch.int64, device=dev),
-        out_d2=torch.empty((num_classes, q), dtype=torch.float32, device=dev),
-        out_attr=torch.empty((num_classes, NATTR, q), dtype=torch.float32, device=dev))
-    p = {k: v.data_ptr() for k, v in args.items()}
-    # one entry: the item list, the walk and the gather
-    kernels.launch("semicp_nn_sparse", "nn_sparse", dev,
-                   p["pts4"], p["label_s"], p["attrs16"], p["tile_box"], p["chunk_box"],
-                   p["q_xyz"], p["q_valid"], p["gate"], n, q, tb, num_classes,
-                   p["keys"], p["items"], p["wbox"], p["counters"], p["out_d2"], p["out_attr"])
-    kernels.WALKED["nn_sparse"] = args["counters"][2:]
-    return args["out_d2"], args["out_attr"]
+        counters=torch.empty((3,), dtype=torch.int64, device=dev))
+    return args, tb
 
 
 def nn_walked_chunks(prep: dict, q_xyz, q_valid, gate):
-    """The (query warp, target chunk) pairs K2 walks, as a (Q/32, N/32)
+    """The (query warp, target chunk) pairs K2 and K6 walk, as a (Q/32, N/32)
     bool matrix: the chunk's tile lies within the gate of the warp's box
     (an item), and the chunk within it of the warp's box and of one of
-    its valid queries. The plain mirror of csrc/nn_sparse.cu's culling, in
-    its float32 arithmetic; it syncs, so it is for tests and measurement."""
+    its valid queries. The plain mirror of the culling of csrc/nn_walk.cuh,
+    in its float32 arithmetic; it syncs, so it is for tests and
+    measurement."""
     n, q = prep["xyz_s"].shape[1], q_xyz.shape[1]
     n_tt = prep["tile_box"].shape[0]
     per_tile = n // n_tt // CHUNK
@@ -184,7 +176,7 @@ def nn_walked_chunks(prep: dict, q_xyz, q_valid, gate):
 
 
 def pack_key(d2, idx):
-    """The 64-bit key of K2's atomicMin merge (csrc/common.cuh `pack_key`)
+    """The 64-bit key of the walk's atomicMin merge (csrc/common.cuh `pack_key`)
     as an int64 tensor whose order, read as unsigned, is that of (d2, idx):
     the order-preserving bits of the float32 d2 (-0 taken as +0) above
     the index. Reference for the tests; the kernel builds its own."""
@@ -192,3 +184,4 @@ def pack_key(d2, idx):
     e = torch.where(u >= 0x80000000, u ^ 0xFFFFFFFF, u | 0x80000000)
     # the unsigned key e * 2^32 + idx less 2^63, so that int64 order is its order
     return (e - (1 << 31)) * (1 << 32) + idx.to(torch.int64)
+

@@ -1,8 +1,9 @@
 // Shared constants and device functions of the semicp_torch CUDA kernels.
 //
-// The candidate walk of the sparse nearest neighbour (K2, K6) and the
-// per-class Gaussian/softmax update of the E-step (K3, K6) live here, so
-// that the split path and the fused kernel run the same arithmetic.
+// The culling and chunk walk of the sparse kernels (K1; K2 and K6 through
+// nn_walk.cuh) and the per-class Gaussian/softmax update of the E-step
+// (K3, K6) live here, so that the split path and the fused kernel run the
+// same arithmetic.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -14,99 +15,14 @@ namespace semicp {
 constexpr float kInf = 3.0e37f;
 constexpr float kNeg = -3.0e37f;
 
-// query tile: one block of kQB threads, one thread per query point
-constexpr int kQB = 256;
-
 // attribute rows of the NN outputs and of the prepared target slab
 // (x, y, z | cov6 | 1 | |t|^2 | label | 4 spare; corr/nn_sparse.py)
 constexpr int kAttr = 16;
-constexpr int kRowT2 = 10;   // |t|^2 row of the prepared slab
-constexpr int kRowLab = 11;  // label row (float class id; num_classes = invalid)
 
 constexpr float kLog2Pi3 = 5.513631199228036f;  // 3 log(2 pi)
 
-// Shared memory of nn_sparse_walk: the staging chunk (x, y, z, |t|^2,
-// label) and the per-class running best (d2, index), one column per thread.
-inline size_t nn_sparse_smem_bytes(int num_classes) {
-  return 5 * kQB * sizeof(float) + static_cast<size_t>(num_classes) * kQB * 8;
-}
-
-// Per-class exact nearest neighbour of the query (qx, qy, qz) over the
-// block's `cnt` candidate target tiles `cand` (tile ids, size tb) of the
-// prepared slab `attrs` (16, n). Every thread of the block must call it
-// (it stages each chunk of a tile with __syncthreads). On return
-// best_d[k * kQB + t] / best_i[k * kQB + t] hold the minimum expanded-form
-// d2 = |q|^2 + |t|^2 - 2 q.t of class k and its target index (-1 and INF
-// where the class has no candidate). Exact ties take the lowest index.
-//
-// The current class's best is cached in registers and written back where
-// the class changes: in the class-major layout a tile's labels are
-// non-decreasing, so that is rare. Correctness does not depend on it.
-__device__ __forceinline__ void nn_sparse_walk(const float* __restrict__ attrs,
-                                               const int* __restrict__ cand, int cnt, int n,
-                                               int tb, int num_classes, float qx, float qy,
-                                               float qz, float* __restrict__ stage,
-                                               float* __restrict__ best_d,
-                                               int* __restrict__ best_i) {
-  float* sx = stage;
-  float* sy = sx + kQB;
-  float* sz = sy + kQB;
-  float* st2 = sz + kQB;
-  int* sl = reinterpret_cast<int*>(st2 + kQB);
-
-  const int t = threadIdx.x;
-  const float q2 = qx * qx + qy * qy + qz * qz;
-  const float m2x = -2.f * qx, m2y = -2.f * qy, m2z = -2.f * qz;
-
-  for (int k = 0; k < num_classes; ++k) {
-    best_d[k * kQB + t] = kInf;
-    best_i[k * kQB + t] = -1;
-  }
-
-  int cur_k = -1;  // class whose best sits in (cur_d, cur_i)
-  float cur_d = kInf;
-  int cur_i = -1;
-
-  for (int c = 0; c < cnt; ++c) {
-    const int base = cand[c] * tb;
-    for (int s = 0; s < tb; s += kQB) {
-      __syncthreads();
-      const int g = base + s + t;
-      sx[t] = attrs[g];
-      sy[t] = attrs[n + g];
-      sz[t] = attrs[2 * n + g];
-      st2[t] = attrs[kRowT2 * n + g];
-      sl[t] = static_cast<int>(attrs[kRowLab * n + g]);
-      __syncthreads();
-      for (int j = 0; j < kQB; ++j) {
-        const int lab = sl[j];
-        if (lab < 0 || lab >= num_classes) continue;  // padding / invalid
-        const float d2 = fmaf(m2z, sz[j], fmaf(m2y, sy[j], fmaf(m2x, sx[j], q2 + st2[j])));
-        if (lab != cur_k) {
-          if (cur_k >= 0) {
-            best_d[cur_k * kQB + t] = cur_d;
-            best_i[cur_k * kQB + t] = cur_i;
-          }
-          cur_k = lab;
-          cur_d = best_d[lab * kQB + t];
-          cur_i = best_i[lab * kQB + t];
-        }
-        const int gi = base + s + j;
-        if (d2 < cur_d || (d2 == cur_d && gi < cur_i)) {
-          cur_d = d2;
-          cur_i = gi;
-        }
-      }
-    }
-  }
-  if (cur_k >= 0) {
-    best_d[cur_k * kQB + t] = cur_d;
-    best_i[cur_k * kQB + t] = cur_i;
-  }
-}
-
 // ---------------------------------------------------------------------------
-// The per-warp chunk walk of the redesigned sparse kernels (K1, K2).
+// The per-warp chunk walk of the sparse kernels (K1; K2 and K6).
 //
 // A chunk is 32 consecutive points of a class-major Morton sorted cloud,
 // one warp's width. Each chunk has a box of 8 floats, two float4s:
@@ -242,11 +158,11 @@ __device__ __forceinline__ void best_switch(ClassBest& cur, int k, float* __rest
   cur.i = bi[k * kChunk + lane];
 }
 
-// The NN walk of one staged chunk (K2): sp holds its 32 points as
+// The NN walk of one staged chunk (K2, K6): sp holds its 32 points as
 // (x, y, z, |t|^2) with |t|^2 = +inf for an invalid point, sl their labels
 // (num_classes = invalid), `base` the index of its first point and
-// [cmin, cmax] its class range. d2 = |q|^2 + |t|^2 - 2 q.t is the fmaf
-// chain of nn_sparse_walk, so its bits equal the split kernel's. A chunk
+// [cmin, cmax] its class range. d2 = |q|^2 + |t|^2 - 2 q.t is one fmaf
+// chain, the same in every kernel that walks, so their bits agree. A chunk
 // of one class (the usual case in the class-major layout) runs its 32
 // pairs without a branch or a label read, against the class's best in
 // registers; a mixed chunk takes the per-pair path, which skips every

@@ -11,7 +11,7 @@ Every kernel wrapper checks its arguments, launches on PyTorch's current
 stream, raises if the launch reports an error, and adds one to its entry
 in `LAUNCHES` — there and nowhere else — so a run can show that the main
 path went through the kernels. An auxiliary pass of a kernel (K1's cost
-count) launches with no counter. The data-dependent walks (K1, K2) leave
+count) launches with no counter. The data-dependent walks (K1, K2, K6) leave
 a device tensor of the chunks they walked in `WALKED`, each chunk being
 32 x 32 query-target pairs; reading it syncs, so only a measurement does.
 """
@@ -54,10 +54,10 @@ _SIGNATURES = {
     "semicp_moments_dense": (_P, _P, _P, _P, _I, _P, _P),
     # xyz_s, label_s, attrs16, q_xyz, n, q, num_classes, out_d2, out_attr, stream
     "semicp_nn_dense": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
-    # attrs16, cand, count, q_xyz, q_valid, rc6, log_sem, gate2, n, q, n_cand, tb,
-    # num_classes, a6, b3, c, wsum, stream
-    "semicp_estep_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _P, _P, _P, _P, _P),
+    # pts4, label_s, attrs16, tile_box, chunk_box, q_xyz, q_valid, rc6, log_sem, gate, n,
+    # q, tb, num_classes, keys, items, wbox, counters, a6, b3, c, wsum, stream
+    "semicp_estep_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+                           _P, _P, _P, _P, _P, _P),
 }
 
 _lib = None
