@@ -6,22 +6,25 @@
 Phases (any failure raises and exits non-zero):
 1. require a CUDA device; print the card's name and power limit;
 2. build the hand-written CUDA kernels from semicp_torch/csrc;
-3. each kernel against its plain PyTorch version on the card: K1, K2, K3
-   and K6 at the main path's shapes (the bench scene: 131072-point clouds,
-   20 classes), K5 at n_pad 32768 and 2048, K4 at n_pad 2048; each with
-   its wrapper's time, its kernels' device time alone (torch.profiler),
-   its bound on the card and the share of it reached, and for the
-   data-dependent walks (K1, K2, K6) the pairs walked, read from the
-   device and held equal to the plain mirror of their culling; K6 also
-   against K2 then K3 (bit-equal or not, and time in turns); K1 and K2
-   again with 1% of the target's labels past the classes; then K2 against
-   K4 at n_pad 2048 to 32768 (the dense/sparse crossover);
+3. each kernel against its plain PyTorch version on the card: K1, K2, K3,
+   K6 and G1 (the GN/LM M-step) at the main path's shapes (the bench
+   scene: 131072-point clouds, 20 classes; G1 on the align's first E-step
+   planes, and again on random planes at N = 4097, two calls bit-equal),
+   K5 at n_pad 32768 and 2048, K4 at n_pad 2048; each with its wrapper's
+   time, its kernels' device time alone (torch.profiler), its bound on the
+   card and the share of it reached, and for the data-dependent walks (K1,
+   K2, K5, K6) the pairs walked, read from the device and held equal to
+   the plain mirror of their culling; K6 also against K2 then K3 (bit-equal
+   or not, and time in turns); K1 and K2 again with 1% of the target's
+   labels past the classes; then K2 against K4 at n_pad 2048 to 32768 (the
+   dense/sparse crossover);
 4. the main path at full size: a 120k-point, 20-class scan pair through
    make_cloud -> preprocess_cloud -> make_align_fn(cfg)(src, tgt), with
    the kernel launch counts of that run, the ground-truth error, the
-   steady-state time per scan (preprocess of the source plus align), and
-   the host syncs and kernel launches of one steady scan (only the EM
-   convergence flag may sync);
+   steady-state time per scan (preprocess of the source plus align), the
+   host syncs of one steady scan (only the EM convergence flag may sync),
+   its wrappers' launches and every device kernel it launched
+   (torch.profiler), and the device kernels of one G1 call;
 5. the same slice at n_pad=4096, on the card against the CPU;
 6. the small-cloud raw-layout path: a 20-class pair at n_pad 2048 through
    preprocess_cloud(c, cfg.cov) (K5) and the dense engine (K4, K3), with
@@ -33,7 +36,8 @@ Phases (any failure raises and exits non-zero):
    both; then one E-step at 524288 queries: K6's walked pairs against
    the plain mirror of its culling, its planes against K2 then K3 at
    every point and against the plain version on 4096 query columns, and
-   its time against K2 then K3 in turns;
+   its time against K2 then K3 in turns; G1 on those planes against its
+   plain version;
 8. frame-to-frame odometry at full width: a 20-frame KITTI-layout
    sequence of 120000-point scans with raw SemanticKITTI labels, written
    to a temporary directory and run through semicp_torch.cli.run_odometry
@@ -71,6 +75,7 @@ from semicp_torch import kernels
 from semicp_torch.cloud.covariance import estimate_radius
 from semicp_torch.cloud.moments import (
     moments_plain,
+    moments_raw_walked_chunks,
     moments_walked_chunks,
     neighborhood_moments_dense,
     neighborhood_moments_sparse,
@@ -95,7 +100,15 @@ from semicp_torch.data import (
     save_kitti_poses,
 )
 from semicp_torch.register import align_gicp, em_icp
-from semicp_torch.register.em_icp import _log_sem, resolve_engine, use_fused_estep
+from semicp_torch.register.em_icp import (
+    _estep,
+    _log_sem,
+    _prepare_target,
+    resolve_engine,
+    use_fused_estep,
+)
+from semicp_torch.geom.se3 import se3_exp
+from semicp_torch.register.gauss_newton import gn_solve, gn_solve_plain
 from semicp_torch.register.ndt import align_ndt
 from semicp_torch.register.estep import estep_reduce, estep_reduce_plain
 from semicp_torch.register.fused import estep_fused_plain, estep_sparse_fused
@@ -125,20 +138,26 @@ ESTEP_TOLS = {"a6": (3e-3, 2e-3), "b3": (3e-3, 5e-3), "c": (3e-3, 5e-3), "wsum":
 PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
 # flops of the work each function needs, counted from the kernels' inner
 # loops: an NN pair's fmaf chain and compare (over the pairs the exact
-# per-warp culling keeps, the fewest any of the NN kernels walks); a dense
-# moments pair's differences, squared distance and compares (K5 tests all
-# valid pairs); a neighbour's distance and its ten sums (K1 needs no more
-# than the pairs within the radius); K3's per-class Cholesky, Mahalanobis,
-# softmax and planes
-FLOP_NN_PAIR, FLOP_MOM_PAIR, FLOP_MOM_NEIGHBOUR, FLOP_ESTEP_CLASS = 7, 10, 24, 120
+# per-warp culling keeps, the fewest any of the NN kernels walks); a
+# neighbour's distance and its ten sums (the moments, K1 and K5, need no
+# more than the pairs within the radius); K3's per-class Cholesky,
+# Mahalanobis, softmax and planes; a point of a GN pass (G1: the pose, A p,
+# the cost, B, C, u x p and the 28 sums), for each pass that runs
+FLOP_NN_PAIR, FLOP_MOM_NEIGHBOUR, FLOP_ESTEP_CLASS, FLOP_GN_POINT = 7, 24, 120, 131
+# G1 reads 13 f32 planes (z, a6, b3, c) once
+BYTES_GN_POINT = 52
+MOMENTS_WALK = ("moments_prep_kernel", "moments_tiles_kernel", "moments_cost_kernel",
+                "moments_walk_kernel")
 # each C entry's own device kernels, for the time of the launch alone
 DEVICE_KERNELS = {
-    "moments_sparse": ("moments_prep_kernel", "moments_tiles_kernel", "moments_cost_kernel",
-                       "moments_walk_kernel"),
+    "moments_sparse": MOMENTS_WALK, "moments_dense": MOMENTS_WALK,
     "nn_sparse": ("nn_items_kernel", "nn_walk_kernel", "nn_gather_kernel"),
-    "estep_reduce": ("estep_reduce_kernel",), "moments_dense": ("moments_dense_kernel",),
-    "nn_dense": ("nn_dense_kernel",),
-    "estep_fused": ("nn_items_kernel", "nn_walk_kernel", "estep_keys_kernel")}
+    "estep_reduce": ("estep_reduce_kernel",), "nn_dense": ("nn_dense_kernel",),
+    "estep_fused": ("nn_items_kernel", "nn_walk_kernel", "estep_keys_kernel"),
+    "gn_solve": ("gn_init_kernel", "gn_pass_kernel")}
+# the device kernels of one steady bench scan when the M-step still ran as
+# torch ops, before G1 (PERF.md)
+TORCH_MSTEP_SCAN_KERNELS = 10441
 
 
 def card_line() -> str:
@@ -161,9 +180,11 @@ def cuda_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def kernel_ms(name, fn, reps: int) -> float:
+def kernel_ms(name, fn, reps: int, per_call=None) -> float:
     """Device time of the entry's own kernels per call of fn (the launch
-    alone, without the wrapper's torch work), from torch.profiler."""
+    alone, without the wrapper's torch work), from torch.profiler.
+    per_call: the launches of a kernel in one call, where not 1."""
+    per_call = per_call or {}
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -179,12 +200,13 @@ def kernel_ms(name, fn, reps: int) -> float:
                     ts.append(e.time_range.elapsed_us() / 1e3)
     missing = [k for k, ts in times.items() if not ts]
     assert not missing, f"torch.profiler recorded no device time for {missing}"
-    # each kernel launches once a call: its mean over the launches the
-    # profiler recorded (it has been seen to drop some of a short window's)
-    lost = {k: f"{len(ts)} of {reps}" for k, ts in times.items() if len(ts) != reps}
+    # each kernel's mean over the launches the profiler recorded (it has
+    # been seen to drop some of a short window's), times its launches a call
+    want = {k: reps * per_call.get(k, 1) for k in times}
+    lost = {k: f"{len(ts)} of {want[k]}" for k, ts in times.items() if len(ts) != want[k]}
     if lost:
         print(f"{name}: torch.profiler recorded launches {lost}")
-    split = {k: sum(ts) / len(ts) for k, ts in times.items()}
+    split = {k: per_call.get(k, 1) * sum(ts) / len(ts) for k, ts in times.items()}
     total = sum(split.values())
     if len(split) > 1:
         print(f"{name}: device ms per call by kernel {split}")
@@ -304,10 +326,11 @@ def check_k1(tgt, cfg, results):
 
 def check_k5(cfg, dev, results):
     """K5 against moments_plain at the covariance level, all points of a
-    raw-layout cloud: at run_batch's capacity, then at the small path's.
-    The JSON line carries the larger shape's times and bound (all pairs
-    of valid points are tested)."""
-    errs, times = [], None
+    raw-layout cloud: at run_batch's capacity, then at the small path's;
+    at both, its walked pairs against the plain mirror of its internal
+    order and culling. The JSON line carries the larger shape's times and
+    bound (the pairs within the radius, or the bytes)."""
+    errs, entry = [], None
     for n_points, n_pad, extent in ((BATCH_POINTS, BATCH_PAD, BATCH_EXTENT),
                                     (SMALL_POINTS, SMALL_PAD, SMALL_EXTENT)):
         xyz, lab = make_scene(np.random.default_rng(1), n_points=n_points, extent=extent,
@@ -315,17 +338,131 @@ def check_k5(cfg, dev, results):
         c = semicp_torch.make_cloud(xyz, lab - 1, n_pad=n_pad, device=dev)
         label = torch.clamp(c.label, min=0)
         r = estimate_radius(c.xyz, label, c.valid, k=cfg.cov.k)
-        max_abs, ms, plain_ms, _ = compare_moments(
-            f"K5 moments_dense at n_pad {n_pad}",
-            lambda: neighborhood_moments_dense(c.xyz, label, c.valid, r),
-            c.xyz, label, c.valid, r, int(c.count))
+
+        def k5():
+            return neighborhood_moments_dense(c.xyz, label, c.valid, r)
+
+        max_abs, ms, plain_ms, near = compare_moments(
+            f"K5 moments_dense at n_pad {n_pad}", k5, c.xyz, label, c.valid, r, int(c.count))
         errs.append(max_abs)
-        if times is None:
-            k_ms = kernel_ms("moments_dense",
-                             lambda: neighborhood_moments_dense(c.xyz, label, c.valid, r), 20)
-            times = (ms, k_ms, plain_ms, FLOP_MOM_PAIR * int(c.count) ** 2, 57 * n_pad)
-    results.append(kernel_entry("moments_dense", "semicp_torch/csrc/moments_dense.cu",
-                                "semicp/cloud/pallas_cov.py:75", max(errs), *times))
+        k5()
+        walked = int(kernels.WALKED["moments_dense"].sum()) * CHUNK * CHUNK
+        mirror = int(moments_raw_walked_chunks(c.xyz, label, c.valid, r).sum()) * CHUNK * CHUNK
+        print(f"K5 moments_dense at n_pad {n_pad}: walked {walked} pairs, the plain mirror of "
+              f"its order and culling {mirror}; {near} neighbour pairs within the radius, "
+              f"{int(c.count) ** 2} pairs of valid points")
+        assert walked == mirror, "K5's walk differs from the plain mirror of its culling"
+        if entry is None:
+            entry = kernel_entry("moments_dense", "semicp_torch/csrc/moments_raw.cu",
+                                 "semicp/cloud/pallas_cov.py:75", max_abs, ms,
+                                 kernel_ms("moments_dense", k5, 20), plain_ms,
+                                 FLOP_MOM_NEIGHBOUR * near, 17 * n_pad + 40 * n_pad, walked)
+    entry["max_abs_err"] = max(errs)
+    results.append(entry)
+
+
+def random_planes(n, dev):
+    """Collapsed planes as tests/test_torch_register.py `collapsed_planes`
+    makes them, from a seed: A SPD, b = A x and c = x.b + U(0, 1) for
+    random x, random z. Returns (z, a6, b3, c) on dev."""
+    rng = np.random.default_rng(2)
+    M = rng.normal(size=(n, 3, 3))
+    A = M @ np.swapaxes(M, -1, -2) + np.eye(3) * 0.1
+    a6 = np.stack([A[:, 0, 0], A[:, 1, 1], A[:, 2, 2], A[:, 0, 1], A[:, 0, 2], A[:, 1, 2]])
+    x = rng.normal(size=(3, n)) * 5
+    b3 = np.einsum("nij,jn->in", A, x)
+    c = np.einsum("in,in->n", x, b3) + rng.uniform(size=n)
+    z = rng.normal(size=(3, n)) * 5
+    return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (z, a6, b3, c)]
+
+
+def estep_planes(src, tgt, cfg):
+    """(z, a6, b3, c) of the align's first E-step (T = I) on this path."""
+    dev = src.device
+    gate = torch.full((), cfg.corr.max_dist, device=dev)
+    prep = _prepare_target(tgt, cfg, resolve_engine(cfg, dev))
+    a6, b3, c, _ = _estep(prep, src, _log_sem(src, cfg), torch.eye(4, device=dev), cfg, gate,
+                          gate * gate)
+    return src.xyz, a6, b3, c
+
+
+def compare_gn(tag, planes, gcfg, timed_reps=0):
+    """G1 against gn_solve_plain on the card from T0 = I, with the
+    tolerances of tests/test_torch_register.py `test_gn_solve_matches_jax`:
+    T max |diff| <= 1e-5, H within 1e-4 of its largest entry (and rtol
+    1e-4), cost rtol 1e-4, step rtol 1e-3 + atol 1e-6; and two calls equal
+    to the bit. Returns (T max_abs_err, passes run, ms, alone ms, plain ms,
+    flops, bytes); the times are None unless timed_reps."""
+    z, a6, b3, c = planes
+    T0 = torch.eye(4, device=z.device)
+
+    def g1():
+        return gn_solve(T0, z, a6, b3, c, gcfg)
+
+    out_k = [t.clone() for t in g1()]
+    passes = int(kernels.WALKED["gn_solve"][55])
+    bit = all(torch.equal(a, b) for a, b in zip(out_k, g1()))
+    out_p, plain_ms = host_ms(lambda: gn_solve_plain(T0, z, a6, b3, c, gcfg))
+    (Tk, ck, sk, Hk), (Tp, cp, sp, Hp) = ([t.double().cpu() for t in o] for o in (out_k, out_p))
+    dT = float(torch.max(torch.abs(Tk - Tp)))
+    h_ratio = float(torch.max(torch.abs(Hk - Hp) / (1e-4 * torch.abs(Hp).max()
+                                                    + 1e-4 * torch.abs(Hp))))
+    c_err, s_err = float(torch.abs(ck - cp)), float(torch.abs(sk - sp))
+    ok = (dT <= 1e-5 and h_ratio <= 1.0 and c_err <= 1e-4 * float(torch.abs(cp))
+          and s_err <= 1e-3 * float(torch.abs(sp)) + 1e-6)
+    print(f"{tag}: N {z.shape[1]}, {passes} GN passes; T max |diff| {dT:.3e} (tol 1e-5), H worst "
+          f"ratio {h_ratio:.3f} of tol, cost {float(ck):.6e} vs {float(cp):.6e}, step "
+          f"{float(sk):.3e} vs {float(sp):.3e}; two calls bit-equal: {bit}")
+    assert ok, f"{tag}: G1 disagrees with gn_solve_plain"
+    assert bit, f"{tag}: two G1 calls differ"
+    n = z.shape[1]
+    flops, nbytes = FLOP_GN_POINT * n * passes, BYTES_GN_POINT * n + 4 * (16 + 64)
+    if not timed_reps:
+        return dT, passes, None, None, None, flops, nbytes
+    ms = cuda_ms(g1, timed_reps)
+    k_ms = kernel_ms("gn_solve", g1, timed_reps, per_call={"gn_pass_kernel": gcfg.max_iters})
+    plain_ms = cuda_ms(lambda: gn_solve_plain(T0, z, a6, b3, c, gcfg), 5)
+    print(f"{tag}: G1 wrapper {ms:.4f} ms, alone {k_ms:.4f} ms, plain {plain_ms:.3f} ms")
+    return dT, passes, ms, k_ms, plain_ms, flops, nbytes
+
+
+def check_g1(src, tgt, cfg, results):
+    """G1 against gn_solve_plain on the bench pair's first E-step planes
+    (timed; the JSON entry), then on random SPD planes at N = 4097 (a
+    ragged last block), then on all-zero planes (a NaN step ends the
+    loop)."""
+    dT, passes, ms, k_ms, plain_ms, flops, nbytes = compare_gn(
+        "G1 gn_solve (bench shape)", estep_planes(src, tgt, cfg), cfg.gn, timed_reps=20)
+    z, a6, b3, c = random_planes(4097, src.device)
+    dT2 = compare_gn("G1 gn_solve (random SPD planes)", (z, a6, b3, c), cfg.gn)[0]
+    # an all-zero system: the damped matrix is singular, so one pass
+    # leaves T (its top rows) and the step NaN and the cost 0, and stops
+    zero = [torch.zeros_like(t) for t in (a6, b3, c)]
+    T, cost, step, _ = gn_solve(torch.eye(4, device=z.device), z, *zero, cfg.gn)
+    passes = int(kernels.WALKED["gn_solve"][55])
+    print(f"G1 gn_solve (all-zero planes): {passes} GN pass, T {T.cpu().numpy().tolist()}, "
+          f"cost {float(cost)}, step {float(step)}")
+    assert passes == 1 and bool(torch.isnan(T[:3]).all()) and bool(torch.isnan(step))
+    assert float(cost) == 0.0 and T[3].tolist() == [0.0, 0.0, 0.0, 1.0]
+    results.append(kernel_entry("gn_solve", "semicp_torch/csrc/gn_solve.cu",
+                                "semicp/register/gauss_newton.py:37", max(dT, dT2), ms, k_ms,
+                                plain_ms, flops, nbytes, None))
+
+
+def device_kernels(fn, calls: int = 1):
+    """fn()'s result and the device kernels that `calls` calls of it
+    launched, counted from torch.profiler's device events (memory copies
+    and sets left out). The profiler has been seen to miss every event of
+    a window as short as one GN solve, so short functions take more calls."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            out = fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset")))
+    return out, n
 
 
 def compare_nn(tag, d2_k, at_k, d2_p, at_p, q, sel):
@@ -626,7 +763,8 @@ def phase6(dev):
     assert conv, "small raw-layout pair did not converge"
     assert terr < 0.02 and rerr < 0.005, (terr, rerr)
     assert np.isfinite(T).all()
-    ran = [k for k in ("moments_dense", "nn_dense", "estep_reduce") if launches[k] == 0]
+    ran = [k for k in ("moments_dense", "nn_dense", "estep_reduce", "gn_solve")
+           if launches[k] == 0]
     assert not ran, f"kernels not launched on the small raw-layout path: {ran}"
     stray = [k for k in ("moments_sparse", "nn_sparse") if launches[k] != 0]
     assert not stray, f"sparse kernels launched on the small raw-layout path: {stray}"
@@ -696,7 +834,8 @@ def phase7(dev, results):
     assert conv, "map-scale pair did not converge"
     assert terr < 0.02 and rerr < 0.005, (terr, rerr)
     assert np.isfinite(T).all()
-    assert launches["estep_fused"] > 0, "the fused E-step (K6) was not launched"
+    assert launches["estep_fused"] > 0 and launches["gn_solve"] > 0, \
+        "the fused E-step (K6) or the M-step (G1) was not launched"
     stray = [k for k in ("nn_sparse", "estep_reduce") if launches[k] != 0]
     assert not stray, f"split E-step kernels launched on the fused path: {stray}"
 
@@ -772,6 +911,10 @@ def phase7(dev, results):
           f"(its kernels alone {k_ms:.3f} ms), K2 then K3 {t[1]:.3f} / {t[2]:.3f} ms")
     entry = next(r for r in results if r["name"] == "estep_fused")
     entry["max_abs_err"] = max(entry["max_abs_err"], max_abs)
+    dT = compare_gn(f"G1 gn_solve at {MAP_PAD} points (K6's planes)", (q,) + tuple(out_k[:3]),
+                    cfg.gn, timed_reps=5)[0]
+    entry = next(r for r in results if r["name"] == "gn_solve")
+    entry["max_abs_err"] = max(entry["max_abs_err"], dT)
     return launches
 
 
@@ -861,7 +1004,8 @@ def phase8(dev, card):
         assert np.loadtxt(root / "p2.txt").shape == (SEQ_FRAMES, 12)
         assert len(recs) == SEQ_FRAMES - 1 and np.isfinite(P).all()
         assert out["ate_rmse_m"] < 0.05 and out["rpe_trans_m"] < 0.02, out
-        missing = [k for k in ("moments_sparse", "nn_sparse", "estep_reduce") if launches[k] == 0]
+        missing = [k for k in ("moments_sparse", "nn_sparse", "estep_reduce", "gn_solve")
+                   if launches[k] == 0]
         assert not missing, f"kernels not launched on the odometry path: {missing}"
         stray = [k for k in ("nn_dense", "moments_dense", "estep_fused") if launches[k] != 0]
         assert not stray, f"kernels off the odometry path launched: {stray}"
@@ -946,7 +1090,7 @@ def phase9(src, tgt, T_gt, cfg, dev):
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     print(f"phase 9: NDT kernel launches {launches}")
-    missing = [k for k in ("nn_sparse", "estep_reduce") if launches[k] == 0]
+    missing = [k for k in ("nn_sparse", "estep_reduce", "gn_solve") if launches[k] == 0]
     assert not missing, f"kernels not launched on the NDT path: {missing}"
 
     rng = np.random.default_rng(0)
@@ -993,6 +1137,7 @@ def main() -> None:
     check_k2_k3(src, tgt, cfg, results)
     check_past_labels(src, tgt, cfg)
     check_k6(src, tgt, cfg, results)
+    check_g1(src, tgt, cfg, results)
     check_k5(cfg, dev, results)
     check_k4(cfg, dev, results)
     crossover(dev)
@@ -1020,7 +1165,7 @@ def main() -> None:
     assert conv, "main path did not converge"
     assert terr < 0.02 and rerr < 0.005, (terr, rerr)
     assert np.isfinite(T).all()
-    main_path = ("moments_sparse", "nn_sparse", "estep_reduce")
+    main_path = ("moments_sparse", "nn_sparse", "estep_reduce", "gn_solve")
     missing = [k for k in main_path if launches[k] == 0]
     assert not missing, f"kernels not launched on the main path: {missing}"
 
@@ -1042,6 +1187,18 @@ def main() -> None:
           f"{iters} EM iterations (one convergence-flag read each); kernel launches of that "
           f"scan {per_scan}")
     assert n_sync == iters, "a host sync crept into the scan beyond the EM flag"
+    res, n_kernels = device_kernels(lambda: align_fn(semicp_torch.preprocess_cloud(raw_src, cfg),
+                                                     tgt))
+    planes = estep_planes(src, tgt, cfg)
+    T0 = torch.eye(4, device=dev)
+    calls = 20
+    _, n_gn = device_kernels(lambda: gn_solve(T0, *planes, cfg.gn), calls)
+    print(f"phase 4: one steady scan launched {n_kernels} device kernels "
+          f"({int(res.iterations)} EM iterations; {TORCH_MSTEP_SCAN_KERNELS} with the M-step as "
+          f"torch ops); {calls} G1 "
+          f"calls launched {n_gn}, {n_gn / calls} a call (at most max_iters + 2 = "
+          f"{cfg.gn.max_iters + 2})")
+    assert 0 < n_gn <= calls * (cfg.gn.max_iters + 2), n_gn
 
     # phase 5: n_pad=4096, card against CPU
     small = semicp_torch.Config().override({"cloud.n_pad": 4096, "cloud.num_classes": N_CLASSES,
@@ -1073,8 +1230,8 @@ def main() -> None:
     phase9(src, tgt, T_gt, cfg, dev)
     print(f"phase 9: done in {time.perf_counter() - t0:.1f} s")
     # each kernel reports the launches of this slice's path that runs it:
-    # the odometry for K1-K4, phase 6 for K5, phase 7 for K6
-    path = {"moments_sparse": odo, "nn_sparse": odo, "estep_reduce": odo,
+    # the odometry for K1-K4 and G1, phase 6 for K5, phase 7 for K6
+    path = {"moments_sparse": odo, "nn_sparse": odo, "estep_reduce": odo, "gn_solve": odo,
             "nn_dense": odo_small, "moments_dense": small, "estep_fused": big}
     for r in results:
         r["launches"] = path[r["name"]][r["name"]]

@@ -4,7 +4,7 @@ Port of `semicp/cloud/covariance.py` (the radius method). The radius is
 density-adaptive by default: the median k-th-nearest-neighbour distance
 over a strided sample of points, times 1.3. The neighbourhood moments
 come from cloud/moments.py (on CUDA, kernel K1 over a class-major cloud
-and K5 over all pairs otherwise), then the epilogue
+and K5 over a raw-layout one), then the epilogue
 C = S2/n - mean mean^T and the rank-1 GICP clamp C -> I - (1-eps) n n^T.
 """
 
@@ -90,7 +90,7 @@ def estimate_covariances(cloud: Cloud, cfg: CovConfig, class_aware: bool = True,
         return _estimate_radius(cloud, cfg, class_aware, num_classes)
     raise NotImplementedError(
         f"cov.method={cfg.method!r}: the kNN covariances (knn_self) are still "
-        "to port (ROADMAP Queue 1, item 5); use method='radius'")
+        "to port (ROADMAP Queue 1, item 1); use method='radius'")
 
 
 def preprocess_cloud(cloud: Cloud, cfg, class_aware: bool = True) -> Cloud:

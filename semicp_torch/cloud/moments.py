@@ -18,9 +18,12 @@ covariance follows in cloud/covariance.py's epilogue.
   (query chunk, target chunk) pairs it walks, for the tests and for
   `chip_smoke.py`'s check of the kernel's count.
 * `neighborhood_moments_dense` is the raw-layout path (a bare CovConfig,
-  or class_aware=False): plain on the CPU, kernel K5 (csrc/moments_dense.cu)
-  over all pairs on CUDA. Like K1's, its moments are centred on each
-  query point.
+  or class_aware=False): plain on the CPU, kernel K5 (csrc/moments_raw.cu)
+  on CUDA, which runs K1's walk on an internal order of the cloud
+  (`raw_order`) and stores each query's moments to its raw column. Like
+  K1's, its moments are centred on each query point.
+* `raw_walk_inputs` and `moments_raw_walked_chunks` are the plain mirror of
+  K5's internal order and culling, for the tests and `chip_smoke.py`.
 """
 
 from __future__ import annotations
@@ -28,9 +31,19 @@ from __future__ import annotations
 import torch
 
 from semicp_torch import kernels
-from semicp_torch.corr.layout import CHUNK, cull_chunks, limit2, pack_boxes, tile_meta
+from semicp_torch.corr.layout import (
+    CHUNK,
+    cull_chunks,
+    limit2,
+    pack_boxes,
+    radius_cell_key,
+    tile_meta,
+)
 
 NMOM = 10
+# K5's culling buckets: labels 0..RAW_BUCKETS-1 each have one, every label
+# past them shares bucket RAW_BUCKETS (its pair test still compares labels)
+RAW_BUCKETS = 32
 
 
 def moments_plain(xyz, label, valid, radius, qb: int = 512):
@@ -55,23 +68,22 @@ def moments_plain(xyz, label, valid, radius, qb: int = 512):
     return out
 
 
-def neighborhood_moments_sparse(xyz, label, valid, radius, num_classes: int):
-    """(10, N) query-centred masked moments over a cm-sorted cloud (K1).
-
-    A CPU tensor takes `moments_plain`; a CUDA tensor launches K1.
-    `radius` may be a float or a 0-dim tensor (it stays on the device).
-    """
-    if not xyz.is_cuda:
-        return moments_plain(xyz, label, valid, radius)
+def _walk_moments(xyz, label, valid, radius, num_classes: int, perm=None):
+    """Launch the moments walk (csrc/moments_walk.cuh) on CUDA tensors: K1
+    over the cloud as it lies (perm None), K5 over the internal order
+    `perm` ((N,) int64 raw indices), padded inside the kernels to a whole
+    number of chunks. Returns (10, N) query-centred moments in the
+    caller's order and leaves the walked chunks in `kernels.WALKED`."""
     dev = xyz.device
-    n = xyz.shape[1]
+    n_raw = xyz.shape[1]
+    n = n_raw if perm is None else -(-n_raw // CHUNK) * CHUNK
     if n % CHUNK:
         raise ValueError(f"moments_sparse: N={n} must be a multiple of the chunk {CHUNK}")
     nc = n // CHUNK
     xyz, label, valid = xyz.contiguous(), label.to(torch.int32).contiguous(), valid.contiguous()
-    kernels.check(xyz, "xyz", torch.float32, (3, n))
-    kernels.check(label, "label", torch.int32, (n,))
-    kernels.check(valid, "valid", torch.bool, (n,))
+    kernels.check(xyz, "xyz", torch.float32, (3, n_raw))
+    kernels.check(label, "label", torch.int32, (n_raw,))
+    kernels.check(valid, "valid", torch.bool, (n_raw,))
     rad = kernels.device_scalar(radius, torch.float32, dev)
 
     def empty(shape, dtype=torch.int32):
@@ -80,18 +92,40 @@ def neighborhood_moments_sparse(xyz, label, valid, radius, num_classes: int):
     pts4, box, span = empty((n, 4), torch.float32), empty((nc, 8), torch.float32), empty((nc, 2))
     tiles = empty(((nc + CHUNK - 1) // CHUNK, 8), torch.float32)     # boxes of 32 chunks
     count = empty((nc,))
+    scratch = empty((2 * (num_classes + 1),))
+    out = empty((NMOM, n_raw), torch.float32)
+    meta = (pts4.data_ptr(), box.data_ptr(), tiles.data_ptr(), span.data_ptr())
     # the metadata and cost pass (not counted), then the walk, heaviest warps first
-    kernels.launch("semicp_moments_cost", None, dev, xyz.data_ptr(), label.data_ptr(),
-                   valid.data_ptr(), rad.data_ptr(), n, num_classes, pts4.data_ptr(),
-                   box.data_ptr(), tiles.data_ptr(), span.data_ptr(),
-                   empty((2 * (num_classes + 1),)).data_ptr(), count.data_ptr())
+    if perm is None:
+        kernels.launch("semicp_moments_cost", None, dev, xyz.data_ptr(), label.data_ptr(),
+                       valid.data_ptr(), rad.data_ptr(), n, num_classes, *meta,
+                       scratch.data_ptr(), count.data_ptr())
+        order = torch.argsort(count, descending=True).to(torch.int32)
+        kernels.launch("semicp_moments_sparse", "moments_sparse", dev, *meta, order.data_ptr(),
+                       rad.data_ptr(), n, num_classes, empty((1,)).data_ptr(), out.data_ptr())
+        kernels.WALKED["moments_sparse"] = count
+        return out
+    kernels.check(perm, "perm", torch.int64, (n_raw,))
+    kernels.launch("semicp_moments_raw_cost", None, dev, xyz.data_ptr(), label.data_ptr(),
+                   valid.data_ptr(), perm.data_ptr(), rad.data_ptr(), n, n_raw, num_classes,
+                   *meta, scratch.data_ptr(), count.data_ptr())
     order = torch.argsort(count, descending=True).to(torch.int32)
-    out = empty((NMOM, n), torch.float32)
-    kernels.launch("semicp_moments_sparse", "moments_sparse", dev, pts4.data_ptr(),
-                   box.data_ptr(), tiles.data_ptr(), span.data_ptr(), order.data_ptr(),
-                   rad.data_ptr(), n, num_classes, empty((1,)).data_ptr(), out.data_ptr())
-    kernels.WALKED["moments_sparse"] = count
+    kernels.launch("semicp_moments_raw", "moments_dense", dev, *meta, order.data_ptr(),
+                   perm.data_ptr(), rad.data_ptr(), n, n_raw, num_classes,
+                   empty((1,)).data_ptr(), out.data_ptr())
+    kernels.WALKED["moments_dense"] = count
     return out
+
+
+def neighborhood_moments_sparse(xyz, label, valid, radius, num_classes: int):
+    """(10, N) query-centred masked moments over a cm-sorted cloud (K1).
+
+    A CPU tensor takes `moments_plain`; a CUDA tensor launches K1.
+    `radius` may be a float or a 0-dim tensor (it stays on the device).
+    """
+    if not xyz.is_cuda:
+        return moments_plain(xyz, label, valid, radius)
+    return _walk_moments(xyz, label, valid, radius, num_classes)
 
 
 def chunk_inputs(xyz, label, valid, num_classes: int) -> dict:
@@ -146,29 +180,60 @@ def moments_walked_chunks(xyz, label, valid, radius, num_classes: int):
     return walked
 
 
+def raw_order(xyz, label, valid, radius):
+    """K5's internal order of a cloud in any layout, for one call: the
+    (N,) int64 permutation that sorts `corr/layout.py radius_cell_key` at a
+    cell of one radius (stable). Its key is that function on a CPU tensor
+    and kernel `moments_raw_key_kernel` on CUDA; then one sort on the
+    device, no host sync."""
+    n = xyz.shape[1]
+    cell = torch.clamp(kernels.device_scalar(radius, torch.float32, xyz.device)[0], min=1e-6)
+    if not xyz.is_cuda:
+        key = radius_cell_key(xyz, label, valid, RAW_BUCKETS, cell)
+    else:
+        xyz, label, valid = xyz.contiguous(), label.to(torch.int32).contiguous(), valid.contiguous()
+        kernels.check(xyz, "xyz", torch.float32, (3, n))
+        kernels.check(label, "label", torch.int32, (n,))
+        kernels.check(valid, "valid", torch.bool, (n,))
+        key = torch.empty((n,), dtype=torch.int64, device=xyz.device)
+        lo = torch.empty((3,), dtype=torch.int32, device=xyz.device)
+        kernels.launch("semicp_moments_raw_key", None, xyz.device, xyz.data_ptr(),
+                       label.data_ptr(), valid.data_ptr(), cell.data_ptr(), n, RAW_BUCKETS,
+                       lo.data_ptr(), key.data_ptr())
+    return torch.sort(key, stable=True).indices
+
+
+def raw_walk_inputs(xyz, label, valid, radius):
+    """The cloud as K5's walk reads it: (perm, xyz, label, valid) in
+    `raw_order`, padded to whole chunks with invalid points (index -1,
+    zero coordinates, label -1)."""
+    perm = raw_order(xyz, label, valid, radius)
+    perm = torch.cat([perm, perm.new_full((-perm.shape[0] % CHUNK,), -1)])
+    inside = perm >= 0
+    idx = torch.clamp(perm, min=0)
+    return (perm, torch.where(inside, xyz[:, idx], 0.0),
+            torch.where(inside, label.to(torch.int32)[idx], -1), inside & valid[idx])
+
+
+def moments_raw_walked_chunks(xyz, label, valid, radius):
+    """The (query chunk, target chunk) pairs K5 walks: K1's culling
+    (`moments_walked_chunks`) over `raw_walk_inputs`. It syncs."""
+    _, xyz_s, label_s, valid_s = raw_walk_inputs(xyz, label, valid, radius)
+    return moments_walked_chunks(xyz_s, label_s, valid_s, radius, RAW_BUCKETS)
+
+
 def neighborhood_moments_dense(xyz, label, valid, radius):
-    """(10, N) masked moments over all pairs of a cloud in any layout (K5).
+    """(10, N) masked moments of a cloud in any layout (K5).
 
     A CPU tensor takes `moments_plain` (raw moments); a CUDA tensor
     launches K5 (query-centred moments, equal covariances through the
-    epilogue). `radius` may be a float or a 0-dim tensor (it stays on the
-    device).
+    epilogue; a negative label reads as 0, as in K1). `radius` may be a
+    float or a 0-dim tensor (it stays on the device).
     """
     if not xyz.is_cuda:
         return moments_plain(xyz, label, valid, radius)
-    n = xyz.shape[1]
-    label = label.to(torch.int32)
-    tlab = torch.where(valid, label, torch.full_like(label, -1)).contiguous()
-    qlab = torch.where(valid, label, torch.full_like(label, -2)).contiguous()
-    xyz = xyz.contiguous()
-    kernels.check(xyz, "xyz", torch.float32, (3, n))
-    kernels.check(tlab, "label", torch.int32, (n,))
     rad = kernels.device_scalar(radius, torch.float32, xyz.device)
-    out = torch.empty((NMOM, n), dtype=torch.float32, device=xyz.device)
-    kernels.launch("semicp_moments_dense", "moments_dense", xyz.device,
-                   xyz.data_ptr(), tlab.data_ptr(), qlab.data_ptr(), rad.data_ptr(), n,
-                   out.data_ptr())
-    return out
+    return _walk_moments(xyz, label, valid, rad, RAW_BUCKETS, raw_order(xyz, label, valid, rad))
 
 
 def neighborhood_moments_auto(xyz, label, valid, radius, num_classes=None,

@@ -33,6 +33,19 @@ def class_morton_order(xyz, label, valid, num_classes: int, cell: float):
     return torch.sort(key, stable=True).indices
 
 
+def radius_cell_key(xyz, label, valid, num_buckets: int, cell):
+    """(N,) int64 keys of K5's internal order (cloud/moments.py
+    `raw_order`): `class_morton_order`'s key with the label clamped into
+    num_buckets + 1 buckets (min(max(label, 0), num_buckets);
+    num_buckets + 1 where invalid) and the Morton cell a 0-dim tensor, the
+    neighbourhood radius on the device. Kernel `moments_raw_key_kernel`
+    (csrc/moments_raw.cu) computes the same bits."""
+    code = morton_codes(xyz, valid, cell).to(torch.int64)
+    bucket = torch.where(valid, torch.clamp(label.to(torch.int64), 0, num_buckets),
+                         num_buckets + 1)
+    return (bucket << 31) | code
+
+
 def sort_cloud_cm(cloud: Cloud, num_classes: int, cell: float) -> Cloud:
     """Return the cloud in canonical class-major Morton order."""
     order = class_morton_order(cloud.xyz, cloud.label, cloud.valid, num_classes, cell)

@@ -10,10 +10,12 @@ machine with no `nvcc`.
 Every kernel wrapper checks its arguments, launches on PyTorch's current
 stream, raises if the launch reports an error, and adds one to its entry
 in `LAUNCHES` — there and nowhere else — so a run can show that the main
-path went through the kernels. An auxiliary pass of a kernel (K1's cost
-count) launches with no counter. The data-dependent walks (K1, K2, K6) leave
-a device tensor of the chunks they walked in `WALKED`, each chunk being
-32 x 32 query-target pairs; reading it syncs, so only a measurement does.
+path went through the kernels. An auxiliary pass of a kernel (the moments'
+cost count) launches with no counter. The data-dependent kernels leave a
+device tensor in `WALKED`: the walks (K1, K2, K5, K6) the chunks they
+walked, each chunk being 32 x 32 query-target pairs, and G1 its state, whose
+element 55 counts the GN passes that ran; reading one syncs, so only a
+measurement does.
 """
 
 from __future__ import annotations
@@ -33,11 +35,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"moments_sparse": 0, "nn_sparse": 0, "estep_reduce": 0,
-            "moments_dense": 0, "nn_dense": 0, "estep_fused": 0}
+            "moments_dense": 0, "nn_dense": 0, "estep_fused": 0, "gn_solve": 0}
 WALKED: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     # xyz, label, valid, radius, n, num_classes, pts4, chunk_box, tile_box, span,
     # first_last, count, stream
@@ -50,14 +53,23 @@ _SIGNATURES = {
                          _P, _P, _P),
     # nn_d2, attrs, rc6, moved, log_sem, valid, gate2, num_classes, n, a6, b3, c, wsum, stream
     "semicp_estep_reduce": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
-    # xyz, tlab, qlab, radius, n, out, stream
-    "semicp_moments_dense": (_P, _P, _P, _P, _I, _P, _P),
+    # xyz, label, valid, cell, n, num_buckets, lo, key, stream
+    "semicp_moments_raw_key": (_P, _P, _P, _P, _I, _I, _P, _P, _P),
+    # xyz, label, valid, perm, radius, n, n_raw, num_buckets, pts4, chunk_box, tile_box,
+    # span, first_last, count, stream
+    "semicp_moments_raw_cost": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
+    # pts4, chunk_box, tile_box, span, order, perm, radius, n, n_raw, num_buckets, counter,
+    # out, stream
+    "semicp_moments_raw": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
     # xyz_s, label_s, attrs16, q_xyz, n, q, num_classes, out_d2, out_attr, stream
     "semicp_nn_dense": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
     # pts4, label_s, attrs16, tile_box, chunk_box, q_xyz, q_valid, rc6, log_sem, gate, n,
     # q, tb, num_classes, keys, items, wbox, counters, a6, b3, c, wsum, stream
     "semicp_estep_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                            _P, _P, _P, _P, _P, _P),
+    # z, a6, b3, c, T0, n, blocks, max_iters, lm_lambda0, lm_up, lm_down, step_eps, state,
+    # partials, ticket, stream
+    "semicp_gn_solve": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P, _P),
 }
 
 _lib = None

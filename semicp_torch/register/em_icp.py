@@ -8,12 +8,14 @@ Port of `semicp/register/em_icp.py` (the pairwise path). Each EM pass:
           corr/nn_dense.py), then the weight softmax collapsed over the
           classes into per-point GN planes (kernel K3, register/estep.py);
           at map scale both in one kernel (K6, register/fused.py)
-  M-step: frozen-correspondence Gauss-Newton/LM (gauss_newton.py)
+  M-step: frozen-correspondence Gauss-Newton/LM (gauss_newton.py; on
+          CUDA kernel G1, one launch a GN pass)
   check:  ||log(T_new T_old^-1)|| < trans_eps
 
 The JAX `while_loop` becomes a host loop whose only device sync is the
-convergence flag, read once per EM pass. Everything else (the GN passes
-included) is queued without waiting on the device.
+convergence flag, read once per EM pass. Everything else is queued
+without waiting on the device: the GN passes keep their pose and loop
+state on the device, and the host never reads them.
 
 Engines, as in the JAX package: "sparse" (K2), "dense" (K4) and the
 plain "xla". On CUDA "auto" resolves to "sparse" at n_pad >=
@@ -134,7 +136,6 @@ def _align(src: Cloud, tgt: Cloud, T0, gate: float, max_iters: int, cfg: Config,
         src = sort_cloud_cm(src, cfg.cloud.num_classes, cfg.corr.cell)
     tgt_prep = _prepare_target(tgt, cfg, engine)
     log_sem = _log_sem(src, cfg)
-    src_planes = tuple(src.xyz)
     # scalars are filled in on the device: a host copy would block
     gate_t = torch.full((), gate, dtype=torch.float32, device=dev)
     gate2 = gate_t * gate_t
@@ -147,7 +148,7 @@ def _align(src: Cloud, tgt: Cloud, T0, gate: float, max_iters: int, cfg: Config,
     H = torch.zeros((6, 6), dtype=torch.float32, device=dev)
     while it < max_iters:
         a6, b3, c, wsum = _estep(tgt_prep, src, log_sem, T, cfg, gate_t, gate2)
-        T_new, cost, _, H = gn_solve(T, src_planes, a6, b3, c, cfg.gn)
+        T_new, cost, _, H = gn_solve(T, src.xyz, a6, b3, c, cfg.gn)
         step = torch.linalg.vector_norm(se3_log(T_new @ se3_inverse(T)))
         n_corr = torch.sum(wsum)
         T = T_new

@@ -32,6 +32,7 @@ from semicp_torch.data import make_pair as t_make_pair
 from semicp_torch.data import make_scene as t_make_scene
 from semicp_torch.register.em_icp import resolve_engine
 from semicp_torch.register.gauss_newton import gn_solve as t_gn_solve
+from semicp_torch.register.gauss_newton import gn_solve_plain as t_gn_solve_plain
 from semicp_torch.register.residuals import normal_equations_collapsed as t_normal_eq
 
 DELTA = np.array([0.3, -0.15, 0.05, 0.02, -0.01, 0.04])
@@ -77,10 +78,44 @@ def test_normal_equations_collapsed_matches_jax(rng):
     np.testing.assert_allclose(float(ct), float(cj), rtol=1e-4)
 
 
-@pytest.mark.parametrize("max_iters", [1, 8])
-def test_gn_solve_matches_jax(rng, max_iters):
+def far_start_planes():
+    """Eight points a few metres off the origin whose minimum is a large motion
+    (5.5 m, 1.9 rad) from the identity: the first GN step overshoots, so the
+    second pass's cost exceeds the first's and the LM schedule raises
+    lambda."""
+    rng = np.random.default_rng(10)
+    M = rng.normal(size=(8, 3, 3))
+    A = M @ np.swapaxes(M, -1, -2) + np.eye(3) * 0.1
+    a6 = np.stack([A[:, 0, 0], A[:, 1, 1], A[:, 2, 2], A[:, 0, 1], A[:, 0, 2], A[:, 1, 2]])
+    z = rng.normal(size=(3, 8)) * 3 + rng.normal(size=(3, 1)) * 5
+    T_star = np.asarray(semicp.geom.se3_exp(jnp.asarray([2.0, 5.0, 1.0, -0.6, 1.5, 1.1],
+                                                         jnp.float32)))
+    x = T_star[:3, :3] @ z + T_star[:3, 3:]
+    b3 = np.einsum("nij,jn->in", A, x)
+    c = np.einsum("in,in->n", x, b3)
+    return [a.astype(np.float32) for a in (a6, b3, c, z)], T_star
+
+
+def gn_both(a6, b3, c, z, max_iters):
+    """gn_solve of both packages from the identity: (JAX's, the port's
+    plain), each as numpy (T, cost, step, H)."""
+    cfg = semicp.Config().gn.__class__(max_iters=max_iters)
+    tcfg = semicp_torch.Config().gn.__class__(max_iters=max_iters)
+    rj = j_gn_solve(jnp.eye(4), tuple(jnp.asarray(z)), tuple(jnp.asarray(a6)),
+                    tuple(jnp.asarray(b3)), jnp.asarray(c), cfg)
+    rt = t_gn_solve(torch.eye(4), tuple(torch.from_numpy(z)), torch.from_numpy(a6),
+                    torch.from_numpy(b3), torch.from_numpy(c), tcfg)
+    return [np.asarray(v) for v in rj], [v.numpy() for v in rt]
+
+
+@pytest.mark.parametrize("case", [1, 8, "singular", "worse"])
+def test_gn_solve_matches_jax(rng, case):
     """Same LM schedule, early exit and returned H; max_iters=1 also
-    checks that the masked fixed loop stops where the while_loop does."""
+    checks that the masked fixed loop stops where the while_loop does.
+    "singular": all-zero planes make the damped system singular, so one
+    pass leaves T and the step NaN and the cost 0, and the loop stops
+    there. "worse": from a start far off, the second pass's cost exceeds
+    the first's in both packages (lambda grows), compared after 3 passes."""
     a6, b3, c, z = collapsed_planes(rng)
     # make the minimum a small known motion of z: b = A T* z
     T_star = np.asarray(semicp.geom.se3_exp(jnp.asarray([0.1, -0.05, 0.02, 0.01, 0.02, -0.03],
@@ -89,17 +124,37 @@ def test_gn_solve_matches_jax(rng, max_iters):
     x = (T_star[:3, :3] @ z + T_star[:3, 3:]).astype(np.float32)
     b3 = np.einsum("nij,jn->in", A, x).astype(np.float32)
     c = np.einsum("in,in->n", x, b3).astype(np.float32)
-    cfg = semicp.Config().gn.__class__(max_iters=max_iters)
-    tcfg = semicp_torch.Config().gn.__class__(max_iters=max_iters)
-    Tj, cj, sj, Hj = j_gn_solve(jnp.eye(4), tuple(jnp.asarray(z)), tuple(jnp.asarray(a6)),
-                                tuple(jnp.asarray(b3)), jnp.asarray(c), cfg)
-    Tt, ct, st, Ht = t_gn_solve(torch.eye(4), tuple(torch.from_numpy(z)), torch.from_numpy(a6),
-                                torch.from_numpy(b3), torch.from_numpy(c), tcfg)
-    np.testing.assert_allclose(Tt.numpy(), np.asarray(Tj), atol=1e-5)
-    np.testing.assert_allclose(Ht.numpy(), np.asarray(Hj), rtol=1e-4, atol=1e-4 * np.abs(Hj).max())
+    max_iters = case if isinstance(case, int) else {"singular": 8, "worse": 3}[case]
+    if case == "singular":
+        a6, b3, c = np.zeros_like(a6), np.zeros_like(b3), np.zeros_like(c)
+    elif case == "worse":
+        (a6, b3, c, z), T_star = far_start_planes()
+        for costs in zip(*(gn_both(a6, b3, c, z, k) for k in (1, 2))):
+            assert costs[1][1] > costs[0][1] > 0.0, costs
+    (Tj, cj, sj, Hj), (Tt, ct, st, Ht) = gn_both(a6, b3, c, z, max_iters)
+    np.testing.assert_allclose(Tt, Tj, atol=1e-5)
+    np.testing.assert_allclose(Ht, Hj, rtol=1e-4, atol=1e-4 * np.abs(Hj).max())
     np.testing.assert_allclose(float(st), float(sj), rtol=1e-3, atol=1e-6)
-    if max_iters == 8:
-        np.testing.assert_allclose(Tt.numpy(), T_star, atol=1e-4)
+    if case == 8:
+        np.testing.assert_allclose(Tt, T_star, atol=1e-4)
+    elif case == "singular":
+        assert np.isnan(Tt[:3]).all() and np.isnan(st) and ct == cj == 0.0
+        np.testing.assert_array_equal(Tt[3], [0.0, 0.0, 0.0, 1.0])
+    elif case == "worse":
+        np.testing.assert_allclose(float(ct), float(cj), rtol=1e-4)
+
+
+@pytest.mark.parametrize("planes", ["tensor", "tuple"])
+def test_gn_solve_dispatch(rng, planes):
+    """On CPU tensors gn_solve is gn_solve_plain to the bit, with the
+    source as the (3, N) planes em_icp passes or as three planes."""
+    a6, b3, c, z = (torch.from_numpy(a) for a in collapsed_planes(rng))
+    cfg = semicp_torch.Config().gn
+    src = z if planes == "tensor" else tuple(z)
+    out = t_gn_solve(torch.eye(4), src, a6, b3, c, cfg)
+    ref = t_gn_solve_plain(torch.eye(4), tuple(z), a6, b3, c, cfg)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
 
 
 def test_align_matches_jax_and_gt(pair):

@@ -7,8 +7,11 @@ the 32-point chunk boxes and class ranges lower-bound every pair, empty
 and scattered chunks are culled rather than NaN, and walking only the
 kept chunks gives the plain NN within the gate (tolerances of
 `chip_smoke.compare_nn`: d2 rtol 1e-4, atol 1e-3) and the plain moments
-at the covariance level (`compare_moments`: atol 1e-5 + rtol 1e-3). Also
-the order of K2's 64-bit merge key, and the card as the default device.
+at the covariance level (`compare_moments`: atol 1e-5 + rtol 1e-3). K5
+runs K1's walk on an internal order of a raw-layout cloud
+(`raw_walk_inputs`, `moments_raw_walked_chunks`), held the same way and
+to the raw order it returns to. Also the order of K2's 64-bit merge key,
+and the card as the default device.
 """
 
 import inspect
@@ -19,7 +22,15 @@ import torch
 
 import semicp_torch
 from semicp_torch.cloud.cloud import make_cloud
-from semicp_torch.cloud.moments import chunk_inputs, moments_plain, moments_walked_chunks
+from semicp_torch.cloud.moments import (
+    RAW_BUCKETS,
+    chunk_inputs,
+    moments_plain,
+    moments_raw_walked_chunks,
+    moments_walked_chunks,
+    raw_order,
+    raw_walk_inputs,
+)
 from semicp_torch.convert import cloud_from_numpy
 from semicp_torch.corr.bruteforce import INF
 from semicp_torch.corr.layout import (
@@ -210,6 +221,113 @@ def test_moments_walk_of_kept_chunks_equals_plain(rng, kind):
     sel = c.valid & (m_p[0] >= 3)
     ce, cp = cov64(m_e)[:, sel], cov64(m_p)[:, sel]
     assert bool(torch.all(torch.abs(ce - cp) <= COV_ATOL + COV_RTOL * torch.abs(cp)))
+
+
+def raw_cloud(kind, rng):
+    """(xyz, label, valid, radius) of a raw-layout cloud on the CPU, as
+    K5 gets it: "shuffled", the bench scene's points and labels in random
+    order; "one_label", every label 0 (class_aware=False); "past", 5% of the
+    labels past K5's buckets (shared bucket, matched label to label);
+    "invalid", a fifth of the points invalid in a capacity that is not a
+    whole number of chunks."""
+    n_pad = 2000 if kind == "invalid" else 2048
+    xyz, lab = make_scene(rng, n_points=1900, extent=12.0, n_classes=K)
+    perm = rng.permutation(len(xyz))
+    xyz, lab = xyz[perm], (lab[perm] - 1).clip(0)
+    if kind == "one_label":
+        lab = np.zeros_like(lab)
+    elif kind == "past":
+        sel = xyz[:, 0] > np.quantile(xyz[:, 0], 0.95)
+        lab[sel] = RAW_BUCKETS + rng.choice([0, 1, 8], size=int(sel.sum()))
+    c = make_cloud(xyz, lab, n_pad=n_pad, device="cpu")
+    valid = c.valid.clone()
+    if kind == "invalid":
+        valid &= torch.from_numpy(rng.uniform(size=n_pad) > 0.2)
+    return c.xyz, c.label, valid, 0.6
+
+
+K5_KINDS = ["shuffled", "one_label", "past", "invalid"]
+
+
+@pytest.mark.parametrize("kind", K5_KINDS)
+def test_k5_order_chunk_boxes_lower_bound_every_pair(rng, kind):
+    """In K5's internal order, each chunk's box and bucket range hold its
+    valid points and the point-to-box distance never exceeds a pair
+    distance; the padding up to whole chunks is invalid and culled."""
+    xyz, label, valid, r = raw_cloud(kind, rng)
+    perm, xs, ls, vs = raw_walk_inputs(xyz, label, valid, r)
+    n = perm.shape[0]
+    assert n % CHUNK == 0 and n - xyz.shape[1] == int((perm < 0).sum()) < CHUNK
+    a = chunk_inputs(xs, ls, vs, RAW_BUCKETS)
+    box, nc = a["chunk_box"], n // CHUNK
+    assert ranges_inside(box, RAW_BUCKETS)
+    pts = xs.T
+    g = box_gap2(pts[:, None, :], pts[:, None, :], box[None, :, 0:3], box[None, :, 4:7])
+    d2 = torch.sum((pts[:, None, :] - pts[None, :, :]) ** 2, dim=-1)
+    lower = g[:, torch.arange(n) // CHUNK]
+    assert not torch.isnan(g).any()
+    assert bool(torch.all(lower[:, vs] <= d2[:, vs] + 1e-4))
+    bk = a["bucket"].reshape(nc, CHUNK)
+    v_c = vs.reshape(nc, CHUNK)
+    assert bool(torch.all(~v_c | ((bk >= box[:, 3:4]) & (bk <= box[:, 7:8]))))
+    empty = ~v_c.any(dim=1)
+    assert bool(torch.all(torch.isinf(g[:, empty])))
+    assert bool(torch.all(box[empty, 3] > box[empty, 7]))
+
+
+@pytest.mark.parametrize("kind", K5_KINDS)
+def test_k5_walk_of_kept_chunks_equals_plain(rng, kind):
+    """K5's walk over only the chunks K1's culling keeps in the internal
+    order holds every same-label pair within the radius, walks far fewer
+    pairs than all of them, and its query-centred moments, stored to each
+    query's raw column, give the plain covariances of the raw cloud."""
+    xyz, label, valid, r = raw_cloud(kind, rng)
+    perm, xs, ls, vs = raw_walk_inputs(xyz, label, valid, r)
+    walked = moments_raw_walked_chunks(xyz, label, valid, r)
+    assert torch.equal(walked, moments_walked_chunks(xs, ls, vs, r, RAW_BUCKETS))
+    assert 0 < int(walked.sum()) * CHUNK * CHUNK < int(valid.sum()) ** 2 / 4
+
+    x = xs.double()
+    diff = x[:, None, :] - x[:, :, None]                  # (3, query, target) offsets
+    near = ((ls[:, None] == ls[None, :]) & vs[:, None] & vs[None, :]
+            & (torch.sum(diff * diff, dim=0) < r * r))
+    assert (kind != "past") == (int((near & (ls >= RAW_BUCKETS)[:, None]).sum()) == 0)
+    assert not bool((near & ~expand(walked)).any()), "the culling dropped a neighbour"
+    w = (near & expand(walked)).double()
+    feats = [w.sum(1)] + [(w * diff[i]).sum(1) for i in range(3)]
+    feats += [(w * diff[i] * diff[j]).sum(1) for i, j in ((0, 0), (1, 1), (2, 2),
+                                                          (0, 1), (0, 2), (1, 2))]
+    m_e = torch.zeros((10, xyz.shape[1]), dtype=torch.float64)
+    inside = perm >= 0
+    m_e[:, perm[inside].long()] = torch.stack(feats)[:, inside]
+    m_p = moments_plain(xyz.double(), label, valid, r)
+    assert torch.equal(m_e[0], m_p[0])
+    sel = valid & (m_p[0] >= 3)
+    ce, cp = cov64(m_e)[:, sel], cov64(m_p)[:, sel]
+    assert bool(torch.all(torch.abs(ce - cp) <= COV_ATOL + COV_RTOL * torch.abs(cp)))
+
+
+def test_k5_order_inverse_returns_raw_order(rng):
+    """raw_order is a permutation of the raw indices, bucket-major with the
+    invalid points last (the walk's input pads it with -1 to whole
+    chunks); scattering the ordered cloud back through it returns the raw
+    cloud exactly."""
+    xyz, label, valid, r = raw_cloud("invalid", rng)
+    label = label.clone()
+    label[:64] = RAW_BUCKETS + 5                    # past the buckets, raw order kept
+    perm, xs, ls, vs = raw_walk_inputs(xyz, label, valid, r)
+    n = xyz.shape[1]
+    assert torch.equal(perm[:n], raw_order(xyz, label, valid, torch.tensor(r)))
+    inside = perm >= 0
+    assert bool(inside[:n].all()) and not bool(inside[n:].any())
+    assert torch.equal(torch.sort(perm[inside]).values, torch.arange(n))
+    bucket = torch.where(vs, torch.clamp(ls, 0, RAW_BUCKETS), RAW_BUCKETS + 1)[inside]
+    assert bool(torch.all(bucket[1:] >= bucket[:-1]))
+    back_x, back_l = torch.empty_like(xyz), torch.empty_like(label)
+    back_v = torch.empty_like(valid)
+    idx = perm[inside]
+    back_x[:, idx], back_l[idx], back_v[idx] = xs[:, inside], ls[inside], vs[inside]
+    assert torch.equal(back_x, xyz) and torch.equal(back_l, label) and torch.equal(back_v, valid)
 
 
 def test_pack_key_orders_as_d2_then_index(rng):
