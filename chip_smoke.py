@@ -7,10 +7,13 @@ Phases (any failure raises and exits non-zero):
 1. require a CUDA device; print the card's name and power limit;
 2. build the hand-written CUDA kernels from semicp_torch/csrc;
 3. each kernel against its plain PyTorch version on the card: K1, K2, K3,
-   K6 and G1 (the GN/LM M-step) at the main path's shapes (the bench
-   scene: 131072-point clouds, 20 classes; G1 on the align's first E-step
-   planes, and again on random planes at N = 4097, two calls bit-equal),
-   K5 at n_pad 32768 and 2048, K4 at n_pad 2048; each with its wrapper's
+   K6 and G1 (the GN/LM M-step and the end of the EM pass: the pose,
+   em_step, n_corr, and the next E-step's moved source and rotated
+   covariances, held to the plain tail to the bit) at the main path's
+   shapes (the bench scene: 131072-point clouds, 20 classes; G1 on the
+   align's first E-step planes, on random planes at N = 4097, two calls
+   bit-equal, and on all-zero planes), K5 at n_pad 32768 and 2048, K4 at
+   n_pad 2048; each with its wrapper's
    time, its kernels' device time alone (torch.profiler), its bound on the
    card and the share of it reached, and for the data-dependent walks (K1,
    K2, K5, K6) the pairs walked, read from the device and held equal to
@@ -24,7 +27,9 @@ Phases (any failure raises and exits non-zero):
    steady-state time per scan (preprocess of the source plus align), the
    host syncs of one steady scan (only the EM convergence flag may sync),
    its wrappers' launches and every device kernel it launched
-   (torch.profiler), and the device kernels of one G1 call;
+   (torch.profiler), the device kernels of one EM pass (an align at
+   em.max_iters 4 less one at 3, both short of convergence; at most 8)
+   and of one G1 call (one);
 5. the same slice at n_pad=4096, on the card against the CPU;
 6. the small-cloud raw-layout path: a 20-class pair at n_pad 2048 through
    preprocess_cloud(c, cfg.cov) (K5) and the dense engine (K4, K3), with
@@ -37,7 +42,8 @@ Phases (any failure raises and exits non-zero):
    the plain mirror of its culling, its planes against K2 then K3 at
    every point and against the plain version on 4096 query columns, and
    its time against K2 then K3 in turns; G1 on those planes against its
-   plain version;
+   plain version, with its planes staged in shared memory and read from
+   L2;
 8. frame-to-frame odometry at full width: a 20-frame KITTI-layout
    sequence of 120000-point scans with raw SemanticKITTI labels, written
    to a temporary directory and run through semicp_torch.cli.run_odometry
@@ -107,8 +113,16 @@ from semicp_torch.register.em_icp import (
     resolve_engine,
     use_fused_estep,
 )
-from semicp_torch.geom.se3 import se3_exp
-from semicp_torch.register.gauss_newton import gn_solve, gn_solve_plain
+from semicp_torch.geom.se3 import se3_inverse, se3_log
+from semicp_torch.register.gauss_newton import (
+    S_PASSES,
+    em_tail,
+    em_tail_plain,
+    launch_plan,
+    move_source,
+    move_source_plain,
+    tail_outputs,
+)
 from semicp_torch.register.ndt import align_ndt
 from semicp_torch.register.estep import estep_reduce, estep_reduce_plain
 from semicp_torch.register.fused import estep_fused_plain, estep_sparse_fused
@@ -142,10 +156,13 @@ PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
 # neighbour's distance and its ten sums (the moments, K1 and K5, need no
 # more than the pairs within the radius); K3's per-class Cholesky,
 # Mahalanobis, softmax and planes; a point of a GN pass (G1: the pose, A p,
-# the cost, B, C, u x p and the 28 sums), for each pass that runs
+# the cost, B, C, u x p and the 28 sums), for each pass that runs; a
+# point of G1's tail (moved, the rotated covariance and the wsum sum)
 FLOP_NN_PAIR, FLOP_MOM_NEIGHBOUR, FLOP_ESTEP_CLASS, FLOP_GN_POINT = 7, 24, 120, 131
-# G1 reads 13 f32 planes (z, a6, b3, c) once
-BYTES_GN_POINT = 52
+FLOP_TAIL_POINT = 94
+# G1 reads 20 f32 planes (z, cov6, a6, b3, c, wsum) once and writes 9
+# (moved, rc) once
+BYTES_GN_POINT = 116
 MOMENTS_WALK = ("moments_prep_kernel", "moments_tiles_kernel", "moments_cost_kernel",
                 "moments_walk_kernel")
 # each C entry's own device kernels, for the time of the launch alone
@@ -154,10 +171,11 @@ DEVICE_KERNELS = {
     "nn_sparse": ("nn_items_kernel", "nn_walk_kernel", "nn_gather_kernel"),
     "estep_reduce": ("estep_reduce_kernel",), "nn_dense": ("nn_dense_kernel",),
     "estep_fused": ("nn_items_kernel", "nn_walk_kernel", "estep_keys_kernel"),
-    "gn_solve": ("gn_init_kernel", "gn_pass_kernel")}
+    "gn_solve": ("gn_em_kernel",)}
 # the device kernels of one steady bench scan when the M-step still ran as
-# torch ops, before G1 (PERF.md)
-TORCH_MSTEP_SCAN_KERNELS = 10441
+# torch ops, before G1, and when G1 still took a launch a GN pass and the
+# EM pass's tail ran as torch ops (PERF.md)
+TORCH_MSTEP_SCAN_KERNELS, G1_PER_PASS_SCAN_KERNELS = 10441, 1555
 
 
 def card_line() -> str:
@@ -362,9 +380,10 @@ def check_k5(cfg, dev, results):
 
 
 def random_planes(n, dev):
-    """Collapsed planes as tests/test_torch_register.py `collapsed_planes`
-    makes them, from a seed: A SPD, b = A x and c = x.b + U(0, 1) for
-    random x, random z. Returns (z, a6, b3, c) on dev."""
+    """The E-step's planes as tests/test_torch_register.py
+    `collapsed_planes` makes them, from a seed: A SPD, b = A x and c = x.b
+    + U(0, 1) for random x, random z; and random source covariances and
+    weights. Returns (z, cov6, a6, b3, c, wsum) on dev."""
     rng = np.random.default_rng(2)
     M = rng.normal(size=(n, 3, 3))
     A = M @ np.swapaxes(M, -1, -2) + np.eye(3) * 0.1
@@ -373,77 +392,116 @@ def random_planes(n, dev):
     b3 = np.einsum("nij,jn->in", A, x)
     c = np.einsum("in,in->n", x, b3) + rng.uniform(size=n)
     z = rng.normal(size=(3, n)) * 5
-    return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (z, a6, b3, c)]
+    cov6 = rng.normal(size=(6, n))
+    wsum = rng.uniform(size=n)
+    return [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+            for a in (z, cov6, a6, b3, c, wsum)]
 
 
 def estep_planes(src, tgt, cfg):
-    """(z, a6, b3, c) of the align's first E-step (T = I) on this path."""
+    """(z, cov6, a6, b3, c, wsum) of the align's first E-step (T = I) on
+    this path: G1's inputs."""
     dev = src.device
     gate = torch.full((), cfg.corr.max_dist, device=dev)
     prep = _prepare_target(tgt, cfg, resolve_engine(cfg, dev))
-    a6, b3, c, _ = _estep(prep, src, _log_sem(src, cfg), torch.eye(4, device=dev), cfg, gate,
-                          gate * gate)
-    return src.xyz, a6, b3, c
+    moved, rc = move_source(torch.eye(4, device=dev), src.xyz, src.cov6)
+    a6, b3, c, wsum = _estep(prep, src, _log_sem(src, cfg), moved, rc, cfg, gate, gate * gate)
+    return src.xyz, src.cov6, a6, b3, c, wsum
 
 
-def compare_gn(tag, planes, gcfg, timed_reps=0):
-    """G1 against gn_solve_plain on the card from T0 = I, with the
-    tolerances of tests/test_torch_register.py `test_gn_solve_matches_jax`:
-    T max |diff| <= 1e-5, H within 1e-4 of its largest entry (and rtol
-    1e-4), cost rtol 1e-4, step rtol 1e-3 + atol 1e-6; and two calls equal
-    to the bit. Returns (T max_abs_err, passes run, ms, alone ms, plain ms,
-    flops, bytes); the times are None unless timed_reps."""
-    z, a6, b3, c = planes
+def same_bits(a, b) -> bool:
+    """a and b equal to the bit (NaN against NaN counts as equal)."""
+    eq = a.contiguous().view(torch.int32) == b.contiguous().view(torch.int32)
+    return bool(torch.all(eq | (torch.isnan(a) & torch.isnan(b))))
+
+
+def compare_tail(tag, planes, gcfg, timed_reps=0, stage=True):
+    """G1 against em_tail_plain on the card from T_in = I. The M-step with
+    the tolerances of tests/test_torch_register.py
+    `test_gn_solve_matches_jax`: T max |diff| <= 1e-5, H within 1e-4 of
+    its largest entry (and rtol 1e-4), cost rtol 1e-4, step rtol 1e-3 +
+    atol 1e-6. moved and rc equal to the bit to move_source_plain at G1's
+    T; em_step within 2e-6 + 1e-4 relative of the plain formula at G1's T
+    (f32 rounding of the 4x4 product and the quaternion log) and within
+    1e-4 of the plain tail's; n_corr within 1e-5 relative of the plain sum
+    (another order of f32 adds); move_source (G1 with no pass) equal to the
+    bit to move_source_plain at T_in. Two calls equal to the bit. Returns
+    (T max_abs_err, passes run, ms, alone ms, plain ms, flops, bytes); the
+    times are None unless timed_reps."""
+    z, cov6, a6, b3, c, wsum = planes
     T0 = torch.eye(4, device=z.device)
+    buf = tail_outputs(z.shape[1], z.device)[0]   # kept across calls, as an align does
 
     def g1():
-        return gn_solve(T0, z, a6, b3, c, gcfg)
+        return em_tail(T0, z, cov6, a6, b3, c, wsum, gcfg, buf, stage=stage)
 
     out_k = [t.clone() for t in g1()]
-    passes = int(kernels.WALKED["gn_solve"][55])
-    bit = all(torch.equal(a, b) for a, b in zip(out_k, g1()))
-    out_p, plain_ms = host_ms(lambda: gn_solve_plain(T0, z, a6, b3, c, gcfg))
-    (Tk, ck, sk, Hk), (Tp, cp, sp, Hp) = ([t.double().cpu() for t in o] for o in (out_k, out_p))
+    passes = int(kernels.WALKED["gn_solve"][S_PASSES])
+    bit = all(same_bits(a, b) for a, b in zip(out_k, g1()))
+    out_p, plain_ms = host_ms(lambda: em_tail_plain(T0, z, cov6, a6, b3, c, wsum, gcfg))
+    Tk = out_k[0]
+    moved_p, rc_p = move_source_plain(Tk, z, cov6)
+    bit_move = same_bits(out_k[6], moved_p) and same_bits(out_k[7], rc_p)
+    bit_first = all(same_bits(a, b) for a, b in zip(move_source(T0, z, cov6),
+                                                     move_source_plain(T0, z, cov6)))
+    step_at_k = torch.linalg.vector_norm(se3_log(Tk @ se3_inverse(T0)))
+    (Tk, ck, sk, Hk, ek, nk), (Tp, cp, sp, Hp, ep, np_) = (
+        [t.double().cpu() for t in o[:6]] for o in (out_k, out_p))
     dT = float(torch.max(torch.abs(Tk - Tp)))
     h_ratio = float(torch.max(torch.abs(Hk - Hp) / (1e-4 * torch.abs(Hp).max()
                                                     + 1e-4 * torch.abs(Hp))))
     c_err, s_err = float(torch.abs(ck - cp)), float(torch.abs(sk - sp))
+    e_err, e_err_p = float(torch.abs(ek - float(step_at_k))), float(torch.abs(ek - ep))
+    n_err = float(torch.abs(nk - np_))
+    finite = bool(torch.isfinite(Tp).all())
     ok = (dT <= 1e-5 and h_ratio <= 1.0 and c_err <= 1e-4 * float(torch.abs(cp))
-          and s_err <= 1e-3 * float(torch.abs(sp)) + 1e-6)
-    print(f"{tag}: N {z.shape[1]}, {passes} GN passes; T max |diff| {dT:.3e} (tol 1e-5), H worst "
-          f"ratio {h_ratio:.3f} of tol, cost {float(ck):.6e} vs {float(cp):.6e}, step "
-          f"{float(sk):.3e} vs {float(sp):.3e}; two calls bit-equal: {bit}")
-    assert ok, f"{tag}: G1 disagrees with gn_solve_plain"
+          and s_err <= 1e-3 * float(torch.abs(sp)) + 1e-6
+          and e_err <= 2e-6 + 1e-4 * float(step_at_k) and e_err_p <= 1e-4
+          and n_err <= 1e-5 * float(torch.abs(np_)))
+    plan = launch_plan(z.device, z.shape[1], stage)[:4]
+    print(f"{tag}: N {z.shape[1]}, plan (blocks, share, smem bytes, staged) {plan}, {passes} GN "
+          f"passes; T max |diff| {dT:.3e} (tol 1e-5), H worst ratio {h_ratio:.3f} of tol, cost "
+          f"{float(ck):.6e} vs {float(cp):.6e}, step {float(sk):.3e} vs {float(sp):.3e}; em_step "
+          f"{float(ek):.6e}, plain at G1's T {float(step_at_k):.6e}, plain tail {float(ep):.6e}; "
+          f"n_corr {float(nk):.1f} vs {float(np_):.1f}; moved and rc bit-equal to plain at G1's "
+          f"T: {bit_move}; at T_in (no pass): {bit_first}; two calls bit-equal: {bit}")
+    assert ok or not finite, f"{tag}: G1 disagrees with em_tail_plain"
+    assert bit_move and bit_first, f"{tag}: G1's moved or rc differ from move_source_plain"
     assert bit, f"{tag}: two G1 calls differ"
     n = z.shape[1]
-    flops, nbytes = FLOP_GN_POINT * n * passes, BYTES_GN_POINT * n + 4 * (16 + 64)
+    flops = FLOP_GN_POINT * n * passes + FLOP_TAIL_POINT * n
+    nbytes = BYTES_GN_POINT * n + 4 * (16 + 64)
     if not timed_reps:
         return dT, passes, None, None, None, flops, nbytes
     ms = cuda_ms(g1, timed_reps)
-    k_ms = kernel_ms("gn_solve", g1, timed_reps, per_call={"gn_pass_kernel": gcfg.max_iters})
-    plain_ms = cuda_ms(lambda: gn_solve_plain(T0, z, a6, b3, c, gcfg), 5)
+    k_ms = kernel_ms("gn_solve", g1, timed_reps)
+    plain_ms = cuda_ms(lambda: em_tail_plain(T0, z, cov6, a6, b3, c, wsum, gcfg), 5)
     print(f"{tag}: G1 wrapper {ms:.4f} ms, alone {k_ms:.4f} ms, plain {plain_ms:.3f} ms")
     return dT, passes, ms, k_ms, plain_ms, flops, nbytes
 
 
 def check_g1(src, tgt, cfg, results):
-    """G1 against gn_solve_plain on the bench pair's first E-step planes
+    """G1 against em_tail_plain on the bench pair's first E-step planes
     (timed; the JSON entry), then on random SPD planes at N = 4097 (a
-    ragged last block), then on all-zero planes (a NaN step ends the
-    loop)."""
-    dT, passes, ms, k_ms, plain_ms, flops, nbytes = compare_gn(
+    ragged block), then on all-zero planes (a NaN step ends the loop after
+    one pass)."""
+    dT, passes, ms, k_ms, plain_ms, flops, nbytes = compare_tail(
         "G1 gn_solve (bench shape)", estep_planes(src, tgt, cfg), cfg.gn, timed_reps=20)
-    z, a6, b3, c = random_planes(4097, src.device)
-    dT2 = compare_gn("G1 gn_solve (random SPD planes)", (z, a6, b3, c), cfg.gn)[0]
+    z, cov6, a6, b3, c, wsum = random_planes(4097, src.device)
+    dT2 = compare_tail("G1 gn_solve (random SPD planes)", (z, cov6, a6, b3, c, wsum), cfg.gn)[0]
     # an all-zero system: the damped matrix is singular, so one pass
     # leaves T (its top rows) and the step NaN and the cost 0, and stops
-    zero = [torch.zeros_like(t) for t in (a6, b3, c)]
-    T, cost, step, _ = gn_solve(torch.eye(4, device=z.device), z, *zero, cfg.gn)
-    passes = int(kernels.WALKED["gn_solve"][55])
-    print(f"G1 gn_solve (all-zero planes): {passes} GN pass, T {T.cpu().numpy().tolist()}, "
-          f"cost {float(cost)}, step {float(step)}")
-    assert passes == 1 and bool(torch.isnan(T[:3]).all()) and bool(torch.isnan(step))
-    assert float(cost) == 0.0 and T[3].tolist() == [0.0, 0.0, 0.0, 1.0]
+    zero = [torch.zeros_like(t) for t in (a6, b3, c, wsum)]
+    compare_tail("G1 gn_solve (all-zero planes)", (z, cov6, *zero), cfg.gn)
+    T, cost, step, _, em_step, n_corr, moved, _ = em_tail(torch.eye(4, device=z.device), z,
+                                                          cov6, *zero, cfg.gn)
+    passes0 = int(kernels.WALKED["gn_solve"][S_PASSES])
+    print(f"G1 gn_solve (all-zero planes): {passes0} GN pass, T {T.cpu().numpy().tolist()}, "
+          f"cost {float(cost)}, step {float(step)}, em_step {float(em_step)}, n_corr "
+          f"{float(n_corr)}")
+    assert passes0 == 1 and bool(torch.isnan(T[:3]).all()) and bool(torch.isnan(step))
+    assert bool(torch.isnan(em_step)) and bool(torch.isnan(moved).all())
+    assert float(cost) == 0.0 and float(n_corr) == 0.0 and T[3].tolist() == [0.0, 0.0, 0.0, 1.0]
     results.append(kernel_entry("gn_solve", "semicp_torch/csrc/gn_solve.cu",
                                 "semicp/register/gauss_newton.py:37", max(dT, dT2), ms, k_ms,
                                 plain_ms, flops, nbytes, None))
@@ -688,23 +746,28 @@ def check_k4(cfg, dev, results):
     pair's first E-step (T = I), over the class-sorted target."""
     K = cfg.cloud.num_classes
     src, tgt, _ = small_pair(SMALL_POINTS, SMALL_PAD, SMALL_EXTENT, cfg, dev, cov_only=True)
-    xyz_s, label_s, attrs16 = sort_cloud_by_class(tgt.xyz, tgt.label, tgt.cov6, tgt.valid, K)
+    xyz_s, label_s, attrs16, seg = sort_cloud_by_class(tgt.xyz, tgt.label, tgt.cov6, tgt.valid,
+                                                        K)
+    counts = torch.bincount(label_s[label_s < K], minlength=K)
+    assert int(seg[0]) == 0 and torch.equal((seg[1:] - seg[:-1]).long(), counts), \
+        "K4's class segments differ from a count of the sorted labels"
     q = src.xyz
-    d2_k, at_k = class_nn_attrs_dense(xyz_s, label_s, attrs16, q, K)
+    d2_k, at_k = class_nn_attrs_dense(xyz_s, label_s, attrs16, seg, q, K)
     (d2_p, at_p), plain_ms = host_ms(lambda: class_nn_attrs_plain(
         xyz_s, label_s, label_s < K, attrs16[3:9], q, K))
     found = d2_p < 1e30
     assert torch.equal(found, d2_k < 1e30), "K4 found masks differ from the plain version"
     max_abs, _, _ = compare_nn(f"K4 nn_dense (n_pad {SMALL_PAD}, all valid points)",
                                d2_k, at_k, d2_p, at_p, q, found & src.valid[None, :])
+
     def k4():
-        return class_nn_attrs_dense(xyz_s, label_s, attrs16, q, K)
+        return class_nn_attrs_dense(xyz_s, label_s, attrs16, seg, q, K)
 
     ms = cuda_ms(k4, 50)
     plain_ms = cuda_ms(lambda: class_nn_attrs_plain(xyz_s, label_s, label_s < K,
                                                     attrs16[3:9], q, K), 5)
     n, nq = xyz_s.shape[1], q.shape[1]
-    nbytes = 16 * n + 12 * nq + 36 * int(found.sum()) + 68 * K * nq
+    nbytes = 12 * n + 4 * (K + 1) + 12 * nq + 36 * int(found.sum()) + 68 * K * nq
     print("K4 nn_dense: found masks equal")
     results.append(kernel_entry("nn_dense", "semicp_torch/csrc/nn_dense.cu",
                                 "semicp/corr/pallas_nn2.py:92", max_abs, ms,
@@ -911,8 +974,16 @@ def phase7(dev, results):
           f"(its kernels alone {k_ms:.3f} ms), K2 then K3 {t[1]:.3f} / {t[2]:.3f} ms")
     entry = next(r for r in results if r["name"] == "estep_fused")
     entry["max_abs_err"] = max(entry["max_abs_err"], max_abs)
-    dT = compare_gn(f"G1 gn_solve at {MAP_PAD} points (K6's planes)", (q,) + tuple(out_k[:3]),
-                    cfg.gn, timed_reps=5)[0]
+    planes = (q, src.cov6) + tuple(out_k)
+    dT = compare_tail(f"G1 gn_solve at {MAP_PAD} points (K6's planes, staged)", planes, cfg.gn,
+                      timed_reps=5)[0]
+    out_s = em_tail(torch.eye(4, device=dev), *planes, cfg.gn)
+    out_s = [t.clone() for t in out_s]
+    dT = max(dT, compare_tail(f"G1 gn_solve at {MAP_PAD} points (K6's planes, from L2)", planes,
+                              cfg.gn, timed_reps=5, stage=False)[0])
+    out_l = em_tail(torch.eye(4, device=dev), *planes, cfg.gn, stage=False)
+    print(f"phase 7: G1 staged and from L2 bit-equal: "
+          f"{all(same_bits(a, b) for a, b in zip(out_s, out_l))}")
     entry = next(r for r in results if r["name"] == "gn_solve")
     entry["max_abs_err"] = max(entry["max_abs_err"], dT)
     return launches
@@ -1189,16 +1260,27 @@ def main() -> None:
     assert n_sync == iters, "a host sync crept into the scan beyond the EM flag"
     res, n_kernels = device_kernels(lambda: align_fn(semicp_torch.preprocess_cloud(raw_src, cfg),
                                                      tgt))
+    # one EM pass: an align at max_iters 4 less one at 3, both short of
+    # convergence (the bench pair takes 5)
+    pass_kernels = {}
+    for mi in (4, 3):
+        r, pass_kernels[mi] = device_kernels(lambda: align_fn(src, tgt, max_iters=mi), 3)
+        assert int(r.iterations) == mi and not bool(r.converged), (mi, int(r.iterations))
+    per_pass = (pass_kernels[4] - pass_kernels[3]) / 3
     planes = estep_planes(src, tgt, cfg)
     T0 = torch.eye(4, device=dev)
     calls = 20
-    _, n_gn = device_kernels(lambda: gn_solve(T0, *planes, cfg.gn), calls)
+    _, n_gn = device_kernels(lambda: em_tail(T0, *planes, cfg.gn), calls)
+    _, n_move = device_kernels(lambda: move_source(T0, planes[0], planes[1]), calls)
     print(f"phase 4: one steady scan launched {n_kernels} device kernels "
-          f"({int(res.iterations)} EM iterations; {TORCH_MSTEP_SCAN_KERNELS} with the M-step as "
-          f"torch ops); {calls} G1 "
-          f"calls launched {n_gn}, {n_gn / calls} a call (at most max_iters + 2 = "
-          f"{cfg.gn.max_iters + 2})")
-    assert 0 < n_gn <= calls * (cfg.gn.max_iters + 2), n_gn
+          f"({int(res.iterations)} EM iterations; {G1_PER_PASS_SCAN_KERNELS} with a G1 launch a GN "
+          f"pass and the EM pass's tail as torch ops, {TORCH_MSTEP_SCAN_KERNELS} with the M-step "
+          f"as torch ops); one EM pass launched {per_pass} device kernels (3 aligns at "
+          f"em.max_iters 4: {pass_kernels[4]}, at 3: {pass_kernels[3]}; at most 8); {calls} G1 "
+          f"calls launched {n_gn} device kernels, {calls} G1 calls with no pass {n_move} (one "
+          f"a call)")
+    assert 0 < per_pass <= 8, per_pass
+    assert n_gn == calls and n_move == calls, (n_gn, n_move)
 
     # phase 5: n_pad=4096, card against CPU
     small = semicp_torch.Config().override({"cloud.n_pad": 4096, "cloud.num_classes": N_CLASSES,

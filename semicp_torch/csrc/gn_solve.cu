@@ -1,13 +1,14 @@
-// Gauss-Newton / LM M-step over SE(3) on the collapsed planes (kernel G1).
+// The Gauss-Newton / LM M-step over SE(3) and the end of the EM pass, in
+// one persistent launch (kernel G1).
 //
 // No Pallas kernel of the JAX package corresponds: `gn_solve`
 // (semicp/register/gauss_newton.py:37) is a `lax.while_loop` inside the one
-// XLA program of the EM loop, and XLA fuses its body (the normal-equation
-// reduction, the 6x6 solve, se3_exp and the LM schedule) into a few device
-// kernels. Dispatched op by op from the host, that body is about 175 torch
-// launches a pass. G1 is the body as one launch a pass.
+// XLA program of the EM loop, and XLA fuses its body, the convergence test
+// (semicp/register/em_icp.py:202-210) and the next E-step's inputs
+// (em_icp.py:120, 131, 150) into a few device kernels. G1 is all of it in
+// one launch.
 //
-// Contract (register/gauss_newton.py `gn_solve_plain`): from T = T0,
+// Contract (register/gauss_newton.py `em_tail_plain`): from T = T_in,
 // lambda = lm_lambda0, cost = -1, step = +inf, H = 0, each of at most
 // max_iters passes runs while step > step_eps (a NaN step stops the loop
 // after the pass that produced it, whose update is applied):
@@ -19,56 +20,94 @@
 //   worse = cost >= 0 & cost' > cost; then cost <- cost', step <- |delta|.
 //
 // The returned H and cost are the last pass's, at the pose before its
-// update.
+// update. Then, at the final T: em_step = ||se3_log(T T_in^-1)||, n_corr =
+// sum of wsum, and the next E-step's inputs moved = T z (3, n) and rc =
+// R cov6 R^T (6, n). With solve = 0 (the first E-step of an align) only
+// moved and rc are written, at T_in.
 //
-// Bound on the H100: one read of the 13 input planes (52 B a point; 6.8 MB
-// at N = 131072, which stays in L2 from pass to pass) and about 130 flops a
-// point for each pass that runs: a few microseconds an EM pass. The cost
-// that matters is latency, so the design keeps every pass on the device:
+// Bound on the H100: bytes. The 13 planes z, a6, b3, c, wsum and cov6 are
+// read once and moved and rc written once (116 B a point, 15 MB at
+// N = 131072: 4.5 us at 3.35 TB/s); a GN pass is about 130 flops a point.
+// What the old design lost was latency: a launch a pass, the planes
+// streamed again from L2 in each, a ticket and one thread solving while
+// the grid drained. The design:
 //
-// - `gn_init_kernel` writes the state (T, lambda, cost, step, H, passes)
-//   and clears the ticket; then `gn_pass_kernel` is launched max_iters
-//   times with no host sync. A pass whose step is not above step_eps
-//   returns at once, as the masked loop of the plain version freezes.
-// - Sum stage (`point_sums`): each block covers its points grid-stride
-//   and forms the 28 terms of a point in registers, in residuals.py's
-//   order of operations rounded step by step (no FMA contraction), so a
-//   point's terms equal the plain version's to the bit. Warp shuffles,
-//   then shared memory, leave one partial of 28 floats a block.
-// - The last block to finish (a fence and an atomic ticket that it
-//   resets) adds the partials in block order: no float atomics, so two
-//   runs give the same bits. Update stage (`gn_update`): one thread
-//   assembles H and g, damps, solves, applies se3_exp and the LM schedule
-//   and writes the state. A distributed solve would add its all-reduce of
-//   the 28 sums between the two stages.
+// - One cooperative launch with no more blocks than can be co-resident
+//   (cudaOccupancyMaxActiveBlocksPerMultiprocessor). Each block keeps a
+//   fixed contiguous share of the points for the whole solve; passes are
+//   separated by a grid barrier, and the loop ends inside the kernel once
+//   the step is not above step_eps.
+// - The block's 13 planes (z, a6, b3, c) are staged in shared memory once
+//   with cp.async, and every pass and the final transform read them there.
+//   Above what two blocks an SM can hold, the planes are read from L2 in
+//   every pass (`semicp_gn_plan` picks the path from N).
+// - Deterministic with one barrier a pass: each block writes one partial
+//   row (28 sums, and in the first pass the wsum sum as a 29th) into one of
+//   two buffers that alternate by pass parity. After the barrier every
+//   block adds all rows in block order and solves the same 6x6 system, so
+//   every block holds the same state to the bit. No float atomics; only
+//   block 0 writes the state.
+// - Arithmetic as before: each point's 28 terms in residuals.py's order
+//   with __fmul_rn/__fadd_rn (no FMA contraction), so they equal the plain
+//   version's to the bit; moved and rc in apply_T_planar's and
+//   sym3.rotate's order, so they equal the plain version's at the same T.
+
+#include <cooperative_groups.h>
+
+#include <algorithm>
 
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kBlock = 256;
 constexpr int kWarps = kBlock / 32;
-constexpr int kSums = 28;  // A (6), B (9), C (6), u (3), u x p (3), cost
-// the state, f32: T (4,4) row-major, H (6,6), cost, step, lambda, passes run
-constexpr int kT = 0, kH = 16, kCost = 52, kStep = 53, kLam = 54, kPasses = 55, kState = 64;
+constexpr int kSums = 28;    // A (6), B (9), C (6), u (3), u x p (3), cost
+constexpr int kRow = 32;     // a partial row: the 28 sums, the wsum sum, 3 spare
+constexpr int kGroups = kBlock / (kRow / 4);  // float4 columns read per block row
+constexpr int kPlanes = 13;  // z (3), a6 (6), b3 (3), c (1)
+// the state, f32: T (4,4) row-major, H (6,6), cost, GN step, lambda, passes
+// run, em_step, n_corr
+constexpr int kT = 0, kH = 16, kCost = 52, kStep = 53, kLam = 54, kPasses = 55, kEmStep = 56,
+              kNCorr = 57, kState = 64;
 
-struct GNParams {
+struct GNArgs {
+  const float *z, *cov6, *a6, *b3, *c, *wsum, *T_in;
+  int n, share, solve, max_iters;
   float lam0, up, down, step_eps;
+  float *state, *partials, *moved, *rc;
 };
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 
+// Plane p of the 13 staged ones, in global memory.
+__device__ __forceinline__ const float* plane(const GNArgs& a, int p) {
+  const size_t n = static_cast<size_t>(a.n);
+  if (p < 3) return a.z + p * n;
+  if (p < 9) return a.a6 + (p - 3) * n;
+  if (p < 12) return a.b3 + (p - 9) * n;
+  return a.c;
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
 // One point's 28 terms (residuals.py `_system_terms` and the cost of
 // `normal_equations_collapsed`) at p = T z, T the top three rows of the pose.
-__device__ __forceinline__ void point_terms(const float (&T)[12], float zx, float zy, float zz,
-                                            const float (&a)[6], float bx, float by, float bz,
-                                            float c, float (&s)[kSums]) {
+__device__ __forceinline__ void point_terms(const float (&T)[12], const float (&v)[kPlanes],
+                                            float (&s)[kSums]) {
+  const float zx = v[0], zy = v[1], zz = v[2];
   const float px = add(add(add(mul(T[0], zx), mul(T[1], zy)), mul(T[2], zz)), T[3]);
   const float py = add(add(add(mul(T[4], zx), mul(T[5], zy)), mul(T[6], zz)), T[7]);
   const float pz = add(add(add(mul(T[8], zx), mul(T[9], zy)), mul(T[10], zz)), T[11]);
-  const float a00 = a[0], a11 = a[1], a22 = a[2], a01 = a[3], a02 = a[4], a12 = a[5];
+  const float a00 = v[3], a11 = v[4], a22 = v[5], a01 = v[6], a02 = v[7], a12 = v[8];
+  const float bx = v[9], by = v[10], bz = v[11], c = v[12];
   const float ap0 = add(add(mul(a00, px), mul(a01, py)), mul(a02, pz));  // A p
   const float ap1 = add(add(mul(a01, px), mul(a11, py)), mul(a12, pz));
   const float ap2 = add(add(mul(a02, px), mul(a12, py)), mul(a22, pz));
@@ -103,46 +142,70 @@ __device__ __forceinline__ void point_terms(const float (&T)[12], float zx, floa
   s[27] = cost;
 }
 
-// Sum stage: this block's partial of the 28 sums over its points, written
-// to partials[blockIdx.x * 28 + j]. sh: kWarps x 28 floats of shared memory.
-__device__ __forceinline__ void point_sums(const float* __restrict__ z,
-                                           const float* __restrict__ a6,
-                                           const float* __restrict__ b3,
-                                           const float* __restrict__ c, int n,
-                                           const float (&T)[12], float (*sh)[kSums],
-                                           float* __restrict__ partials) {
-  float acc[kSums];
+// This block's partial row over its points [lo, lo + cnt) at pose T: the
+// 28 sums, and with `first` the wsum sum as the 29th. Written to row
+// blockIdx.x of `rows`. red: kGroups x kRow floats of shared memory.
+template <bool kStaged>
+__device__ __forceinline__ void block_sums(const GNArgs& a, const float* __restrict__ stage,
+                                           int lo, int cnt, const float (&T)[12], bool first,
+                                           float (*red)[kRow], float* __restrict__ rows) {
+  float acc[kSums + 1];
 #pragma unroll
-  for (int j = 0; j < kSums; ++j) acc[j] = 0.f;
-  for (int i = blockIdx.x * kBlock + threadIdx.x; i < n; i += gridDim.x * kBlock) {
-    float a[6], s[kSums];
+  for (int j = 0; j <= kSums; ++j) acc[j] = 0.f;
+  for (int li = threadIdx.x; li < cnt; li += kBlock) {
+    float v[kPlanes], s[kSums];
 #pragma unroll
-    for (int j = 0; j < 6; ++j) a[j] = __ldg(a6 + static_cast<size_t>(j) * n + i);
-    point_terms(T, __ldg(z + i), __ldg(z + n + i), __ldg(z + 2 * static_cast<size_t>(n) + i), a,
-                __ldg(b3 + i), __ldg(b3 + n + i), __ldg(b3 + 2 * static_cast<size_t>(n) + i),
-                __ldg(c + i), s);
+    for (int p = 0; p < kPlanes; ++p)
+      v[p] = kStaged ? stage[p * a.share + li] : __ldg(plane(a, p) + lo + li);
+    point_terms(T, v, s);
 #pragma unroll
     for (int j = 0; j < kSums; ++j) acc[j] = add(acc[j], s[j]);
+    if (first) acc[kSums] = add(acc[kSums], __ldg(a.wsum + lo + li));
   }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
-  for (int j = 0; j < kSums; ++j) {
+  for (int j = 0; j <= kSums; ++j) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       acc[j] = add(acc[j], __shfl_xor_sync(semicp::kFull, acc[j], off));
   }
   if (lane == 0) {
 #pragma unroll
-    for (int j = 0; j < kSums; ++j) sh[warp][j] = acc[j];
+    for (int j = 0; j <= kSums; ++j) red[warp][j] = acc[j];
   }
   __syncthreads();
-  if (threadIdx.x < kSums) {
-    float v = sh[0][threadIdx.x];
+  if (threadIdx.x <= kSums) {
+    float v = red[0][threadIdx.x];
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) v = add(v, sh[w][threadIdx.x]);
-    partials[blockIdx.x * kSums + threadIdx.x] = v;
-    __threadfence();
+    for (int w = 1; w < kWarps; ++w) v = add(v, red[w][threadIdx.x]);
+    __stcg(rows + blockIdx.x * kRow + threadIdx.x, v);
   }
+}
+
+// The grid's sums from all partial rows, in block order, the same in every
+// block: thread (g, q) adds float4 column q of rows g, g + 32, ..., then
+// each sum adds the 32 groups in order. Leaves them in sums[0, 29).
+__device__ __forceinline__ void grid_sums(const float* __restrict__ rows, float (*red)[kRow],
+                                          float* __restrict__ sums) {
+  const int g = threadIdx.x >> 3, q = threadIdx.x & 7;
+  const float4* r4 = reinterpret_cast<const float4*>(rows);
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int b = g; b < static_cast<int>(gridDim.x); b += kGroups) {
+    const float4 x = __ldcg(r4 + b * (kRow / 4) + q);
+    v = make_float4(add(v.x, x.x), add(v.y, x.y), add(v.z, x.z), add(v.w, x.w));
+  }
+  red[g][4 * q] = v.x;
+  red[g][4 * q + 1] = v.y;
+  red[g][4 * q + 2] = v.z;
+  red[g][4 * q + 3] = v.w;
+  __syncthreads();
+  if (threadIdx.x <= kSums) {
+    float s = red[0][threadIdx.x];
+#pragma unroll
+    for (int w = 1; w < kGroups; ++w) s = add(s, red[w][threadIdx.x]);
+    sums[threadIdx.x] = s;
+  }
+  __syncthreads();
 }
 
 // x = M^-1 r for the 6x6 M, LU with partial pivoting in f32 (the first
@@ -225,14 +288,13 @@ __device__ __forceinline__ void se3_exp(const float (&d)[6], float (&E)[3][4]) {
     E[i][3] = add(add(mul(V[i][0], d[0]), mul(V[i][1], d[1])), mul(V[i][2], d[2]));
 }
 
-// Update stage: one thread, from the 28 sums of a pass at the state's pose.
-__device__ void gn_update(const float* __restrict__ s, float* __restrict__ state,
-                          const GNParams& prm) {
+// One GN pass's update of the state st (shared memory) from its sums.
+__device__ void gn_update(const float* __restrict__ s, float* __restrict__ st, const GNArgs& a) {
   const int kIndex[6][6] = {{0, 3, 4, 6, 7, 8},      {3, 1, 5, 9, 10, 11},
-                                {4, 5, 2, 12, 13, 14},   {6, 9, 12, 15, 16, 17},
-                                {7, 10, 13, 16, 18, 19}, {8, 11, 14, 17, 19, 20}};
+                            {4, 5, 2, 12, 13, 14},   {6, 9, 12, 15, 16, 17},
+                            {7, 10, 13, 16, 18, 19}, {8, 11, 14, 17, 19, 20}};
   float H[6][6], M[6][6], r[6], delta[6];
-  const float lam = state[kLam];
+  const float lam = st[kLam];
 #pragma unroll
   for (int i = 0; i < 6; ++i) {
 #pragma unroll
@@ -249,104 +311,276 @@ __device__ void gn_update(const float* __restrict__ s, float* __restrict__ state
   se3_exp(delta, E);
   float T[16];
 #pragma unroll
-  for (int j = 0; j < 16; ++j) T[j] = state[kT + j];
+  for (int j = 0; j < 16; ++j) T[j] = st[kT + j];
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      state[kT + 4 * i + j] =
+      st[kT + 4 * i + j] =
           add(add(add(mul(E[i][0], T[j]), mul(E[i][1], T[4 + j])), mul(E[i][2], T[8 + j])),
               mul(E[i][3], T[12 + j]));
 #pragma unroll
   for (int i = 0; i < 6; ++i)
 #pragma unroll
-    for (int j = 0; j < 6; ++j) state[kH + 6 * i + j] = H[i][j];
-  const float cost = s[27], prev = state[kCost];
+    for (int j = 0; j < 6; ++j) st[kH + 6 * i + j] = H[i][j];
+  const float cost = s[27], prev = st[kCost];
   const bool worse = prev >= 0.f && cost > prev;
-  state[kLam] = worse ? mul(lam, prm.up) : fmaxf(mul(lam, prm.down), prm.lam0);
-  state[kCost] = cost;
+  st[kLam] = worse ? mul(lam, a.up) : fmaxf(mul(lam, a.down), a.lam0);
+  st[kCost] = cost;
   float ss = 0.f;
 #pragma unroll
   for (int i = 0; i < 6; ++i) ss = add(ss, mul(delta[i], delta[i]));
-  state[kStep] = sqrtf(ss);
-  state[kPasses] = add(state[kPasses], 1.f);
+  st[kStep] = sqrtf(ss);
+  st[kPasses] = add(st[kPasses], 1.f);
 }
 
-__global__ void gn_init_kernel(const float* __restrict__ T0, float lam0,
-                               float* __restrict__ state, unsigned* __restrict__ ticket) {
-  const int t = threadIdx.x;
-  float v = 0.f;
-  if (t < 16) v = T0[t];
-  else if (t == kCost) v = -1.f;
-  else if (t == kStep) v = semicp::pos_inf();
-  else if (t == kLam) v = lam0;
-  state[t] = v;
-  if (t == 0) *ticket = 0u;
+// ||se3_log(T Ti^-1)|| for two poses (row-major 4x4): geom/se3.py's
+// se3_inverse, the quaternion so3_log (branchless Shepperd, the first
+// largest pivot) and the V^-1 series, with the same thresholds.
+__device__ float em_step(const float* __restrict__ T, const float* __restrict__ Ti) {
+  float inv[4][4];  // [[R^T, -R^T t], [0, 0, 0, 1]]
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) inv[i][j] = Ti[4 * j + i];
+    inv[i][3] = -(inv[i][0] * Ti[3] + inv[i][1] * Ti[7] + inv[i][2] * Ti[11]);
+    inv[3][i] = 0.f;
+  }
+  inv[3][3] = 1.f;
+  float D[3][4];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      D[i][j] = T[4 * i] * inv[0][j] + T[4 * i + 1] * inv[1][j] + T[4 * i + 2] * inv[2][j] +
+                T[4 * i + 3] * inv[3][j];
+  const float r00 = D[0][0], r01 = D[0][1], r02 = D[0][2];
+  const float r10 = D[1][0], r11 = D[1][1], r12 = D[1][2];
+  const float r20 = D[2][0], r21 = D[2][1], r22 = D[2][2];
+  const float tr = r00 + r11 + r22;
+  const float piv[4] = {1.f + tr, 1.f + 2.f * r00 - tr, 1.f + 2.f * r11 - tr,
+                        1.f + 2.f * r22 - tr};
+  int best = 0;
+#pragma unroll
+  for (int k = 1; k < 4; ++k)
+    if (piv[k] > piv[best]) best = k;
+  const float s = sqrtf(fmaxf(piv[best], 1e-12f)) * 2.f;
+  const float a = (r21 - r12) / s, b = (r02 - r20) / s, c = (r10 - r01) / s;
+  const float d = (r01 + r10) / s, e = (r02 + r20) / s, f = (r12 + r21) / s;
+  const float h = 0.25f * s;
+  float q[4];
+  if (best == 0) { q[0] = h; q[1] = a; q[2] = b; q[3] = c; }
+  else if (best == 1) { q[0] = a; q[1] = h; q[2] = d; q[3] = e; }
+  else if (best == 2) { q[0] = b; q[1] = d; q[2] = h; q[3] = f; }
+  else { q[0] = c; q[1] = e; q[2] = f; q[3] = h; }
+  const float sign = q[0] < 0.f ? -1.f : 1.f;
+  float qn = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    q[k] *= sign;
+    qn += q[k] * q[k];
+  }
+  qn = sqrtf(qn);
+  const float qw = q[0] / qn, vx = q[1] / qn, vy = q[2] / qn, vz = q[3] / qn;
+  const float vn2 = vx * vx + vy * vy + vz * vz;  // so3_log
+  const bool small = vn2 < 1e-8f;
+  const float vn = sqrtf(small ? 1.f : vn2);
+  const float theta = 2.f * atan2f(sqrtf(vn2), qw);
+  const float scale = small ? 2.f / fmaxf(qw, 1e-6f) : theta / vn;
+  const float w[3] = {vx * scale, vy * scale, vz * scale};
+  const float th2 = w[0] * w[0] + w[1] * w[1] + w[2] * w[2];  // se3_log
+  const bool small2 = th2 < 1e-8f;
+  const float safe2 = small2 ? 1.f : th2;
+  const float th = sqrtf(safe2);
+  const float cc = small2 ? 1.f / 12.f + th2 / 720.f
+                          : 1.f / safe2 - (1.f + cosf(th)) / (2.f * th * sinf(th));
+  const float W[3][3] = {{0.f, -w[2], w[1]}, {w[2], 0.f, -w[0]}, {-w[1], w[0], 0.f}};
+  float out = th2;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    float v = 0.f;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const float w2 = W[i][0] * W[0][j] + W[i][1] * W[1][j] + W[i][2] * W[2][j];
+      const float vinv = (i == j ? 1.f : 0.f) - 0.5f * W[i][j] + cc * w2;
+      v += vinv * D[j][3];
+    }
+    out += v * v;
+  }
+  return sqrtf(out);
 }
 
-__global__ void __launch_bounds__(kBlock, 2)
-gn_pass_kernel(const float* __restrict__ z, const float* __restrict__ a6,
-               const float* __restrict__ b3, const float* __restrict__ c, int n, GNParams prm,
-               float* __restrict__ state, float* __restrict__ partials,
-               unsigned* __restrict__ ticket) {
-  __shared__ float sh[kWarps][kSums];
-  __shared__ float sums[kSums];
-  __shared__ bool last;
-  // the loop has exited: every block reads the same state, so the whole
-  // grid returns
-  if (!(__ldcg(state + kStep) > prm.step_eps)) return;
+template <bool kStaged>
+__global__ void __launch_bounds__(kBlock, 2) gn_em_kernel(const GNArgs a) {
+  extern __shared__ float stage[];           // kPlanes x share (kStaged)
+  __shared__ __align__(16) float red[kGroups][kRow];
+  __shared__ float sums[kRow];
+  __shared__ float st[kState];               // the state, the same in every block
+  __shared__ float t_in[16];
+  const int n = a.n;
+  const int lo = blockIdx.x * a.share;
+  const int cnt = max(0, min(n - lo, a.share));
+  if (threadIdx.x < 16) t_in[threadIdx.x] = a.T_in[threadIdx.x];
+  if (threadIdx.x < kState) {
+    const int t = threadIdx.x;
+    st[t] = t < 16 ? a.T_in[t]
+                   : t == kCost ? -1.f
+                   : t == kStep ? semicp::pos_inf()
+                   : t == kLam ? a.lam0 : 0.f;
+  }
+  if (kStaged) {
+#pragma unroll 1
+    for (int p = 0; p < kPlanes; ++p) {
+      const float* src = plane(a, p) + lo;
+      for (int li = threadIdx.x; li < cnt; li += kBlock)
+        cp_async4(stage + p * a.share + li, src + li);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (a.solve) {
+    cg::grid_group grid = cg::this_grid();
+    for (int it = 0;; ++it) {
+      // uniform over the grid: every block holds the same state
+      const bool run = it < a.max_iters && st[kStep] > a.step_eps;
+      if (it > 0 && !run) break;
+      float T[12];
+#pragma unroll
+      for (int j = 0; j < 12; ++j) T[j] = st[kT + j];
+      float* rows = a.partials + static_cast<size_t>(it & 1) * gridDim.x * kRow;
+      block_sums<kStaged>(a, stage, lo, cnt, T, it == 0, red, rows);
+      grid.sync();
+      grid_sums(rows, red, sums);
+      if (it == 0 && threadIdx.x == 0) st[kNCorr] = sums[kSums];
+      if (!run) break;  // max_iters = 0: the wsum sum only
+      if (threadIdx.x == 0) gn_update(sums, st, a);
+      __syncthreads();
+    }
+    __syncthreads();
+    if (blockIdx.x == 0) {
+      if (threadIdx.x == 0) st[kEmStep] = em_step(st + kT, t_in);
+      __syncthreads();
+      if (threadIdx.x < kState) a.state[threadIdx.x] = st[threadIdx.x];
+    }
+  }
+
+  // the next E-step's inputs at the final pose
   float T[12];
 #pragma unroll
-  for (int j = 0; j < 12; ++j) T[j] = __ldcg(state + kT + j);
-  point_sums(z, a6, b3, c, n, T, sh, partials);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  // the partials in block order: thread (g, j) adds blocks g, g + 8, ...
-  // of sum j, then sum j adds the eight in order
-  const int j = threadIdx.x & 31, g = threadIdx.x >> 5;
-  if (j < kSums) {
-    float v = 0.f;
-    for (int b = g; b < static_cast<int>(gridDim.x); b += kWarps)
-      v = add(v, __ldcg(partials + b * kSums + j));
-    sh[g][j] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < kSums) {
-    float v = sh[0][threadIdx.x];
+  for (int j = 0; j < 12; ++j) T[j] = st[kT + j];
+  const size_t ns = static_cast<size_t>(n);
+  for (int li = threadIdx.x; li < cnt; li += kBlock) {
+    const int i = lo + li;
+    float zx, zy, zz;
+    if (kStaged) {
+      zx = stage[li];
+      zy = stage[a.share + li];
+      zz = stage[2 * a.share + li];
+    } else {
+      zx = __ldg(a.z + i);
+      zy = __ldg(a.z + ns + i);
+      zz = __ldg(a.z + 2 * ns + i);
+    }
+    a.moved[i] = add(add(add(mul(T[0], zx), mul(T[1], zy)), mul(T[2], zz)), T[3]);
+    a.moved[ns + i] = add(add(add(mul(T[4], zx), mul(T[5], zy)), mul(T[6], zz)), T[7]);
+    a.moved[2 * ns + i] = add(add(add(mul(T[8], zx), mul(T[9], zy)), mul(T[10], zz)), T[11]);
+    const float xx = __ldg(a.cov6 + i), yy = __ldg(a.cov6 + ns + i);
+    const float zz6 = __ldg(a.cov6 + 2 * ns + i), xy = __ldg(a.cov6 + 3 * ns + i);
+    const float xz = __ldg(a.cov6 + 4 * ns + i), yz = __ldg(a.cov6 + 5 * ns + i);
+    float row[3][3];  // row a of C R^T (sym3.rotate `row`)
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) v = add(v, sh[w][threadIdx.x]);
-    sums[threadIdx.x] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    *ticket = 0u;
-    gn_update(sums, state, prm);
+    for (int r = 0; r < 3; ++r) {
+      const float r0 = T[4 * r], r1 = T[4 * r + 1], r2 = T[4 * r + 2];
+      row[r][0] = add(add(mul(xx, r0), mul(xy, r1)), mul(xz, r2));
+      row[r][1] = add(add(mul(xy, r0), mul(yy, r1)), mul(yz, r2));
+      row[r][2] = add(add(mul(xz, r0), mul(yz, r1)), mul(zz6, r2));
+    }
+    // sym3.rotate `dot`: row ra against row b of R
+    auto dot = [&](int ra, int b) {
+      return add(add(mul(row[ra][0], T[4 * b]), mul(row[ra][1], T[4 * b + 1])),
+                 mul(row[ra][2], T[4 * b + 2]));
+    };
+    a.rc[i] = dot(0, 0);
+    a.rc[ns + i] = dot(1, 1);
+    a.rc[2 * ns + i] = dot(2, 2);
+    a.rc[3 * ns + i] = dot(0, 1);
+    a.rc[4 * ns + i] = dot(0, 2);
+    a.rc[5 * ns + i] = dot(1, 2);
   }
 }
 
 }  // namespace
 
-// z (3,n), a6 (6,n), b3 (3,n), c (n,) f32; T0 (4,4) f32, all on the device.
-// state (64,) f32: T at [0, 16), H at [16, 52), cost 52, step 53, lambda 54,
-// passes run 55. partials (blocks, 28) f32 and ticket (1,) u32: scratch.
-// Launches the set-up and max_iters passes on `stream`, no host sync.
-extern "C" cudaError_t semicp_gn_solve(const float* z, const float* a6, const float* b3,
-                                       const float* c, const float* T0, int n, int blocks,
-                                       int max_iters, float lam0, float lm_up, float lm_down,
-                                       float step_eps, float* state, float* partials,
-                                       unsigned* ticket, cudaStream_t stream) {
-  gn_init_kernel<<<1, kState, 0, stream>>>(T0, lam0, state, ticket);
-  cudaError_t err = cudaGetLastError();
-  const GNParams prm{lam0, lm_up, lm_down, step_eps};
-  for (int it = 0; it < max_iters && err == cudaSuccess; ++it) {
-    gn_pass_kernel<<<blocks, kBlock, 0, stream>>>(z, a6, b3, c, n, prm, state, partials, ticket);
-    err = cudaGetLastError();
+// The launch plan of G1 for n points on the current device: out[0] blocks,
+// out[1] the points of a block, out[2] dynamic shared memory bytes, out[3]
+// 1 if the planes are staged in shared memory. With stage = 0, or when two
+// blocks an SM (then one) cannot hold their share, the planes are read
+// from L2 in every pass. The grid never exceeds the co-resident blocks.
+extern "C" cudaError_t semicp_gn_plan(int n, int stage, int* out) {
+  int dev, sms, optin;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes fa;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, gn_em_kernel<true>);
+  const int max_dyn = optin - static_cast<int>(fa.sharedSizeBytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(gn_em_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               max_dyn);
+  if (err != cudaSuccess) return err;
+  const int want = std::max(1, (n + kBlock - 1) / kBlock);
+  for (int per_sm = 2; stage && per_sm >= 1; --per_sm) {
+    const int blocks = std::min(want, per_sm * sms);
+    const int share = (n + blocks - 1) / blocks;
+    const long smem = static_cast<long>(kPlanes) * share * sizeof(float);
+    if (smem > max_dyn) continue;
+    int nb = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, gn_em_kernel<true>, kBlock,
+                                                        static_cast<size_t>(smem));
+    if (err != cudaSuccess) return err;
+    if (nb * sms >= blocks) {
+      out[0] = blocks;
+      out[1] = share;
+      out[2] = static_cast<int>(smem);
+      out[3] = 1;
+      return cudaSuccess;
+    }
   }
-  return err;
+  int nb = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, gn_em_kernel<false>, kBlock, 0);
+  if (err != cudaSuccess) return err;
+  const int blocks = std::max(1, std::min(want, nb * sms));
+  out[0] = blocks;
+  out[1] = (n + blocks - 1) / blocks;
+  out[2] = 0;
+  out[3] = 0;
+  return cudaSuccess;
+}
+
+// z (3,n), cov6 (6,n), a6 (6,n), b3 (3,n), c (n,), wsum (n,), T_in (4,4) f32,
+// all on the device; blocks, share, smem and staged from semicp_gn_plan.
+// state (64,) f32: T at [0, 16), H at [16, 52), cost 52, GN step 53,
+// lambda 54, passes run 55, em_step 56, n_corr 57. partials (2, blocks,
+// 32) f32: scratch. moved (3,n), rc (6,n): outputs. With solve = 0 only
+// moved and rc are written (at T_in); a6, b3, c, wsum, state and partials
+// are not read. One cooperative launch on `stream`, no host sync.
+extern "C" cudaError_t semicp_gn_solve(const float* z, const float* cov6, const float* a6,
+                                       const float* b3, const float* c, const float* wsum,
+                                       const float* T_in, int n, int blocks, int share, int smem,
+                                       int staged, int solve, int max_iters, float lam0,
+                                       float lm_up, float lm_down, float step_eps, float* state,
+                                       float* partials, float* moved, float* rc,
+                                       cudaStream_t stream) {
+  GNArgs a{z, cov6, a6, b3, c, wsum, T_in, n, share, solve, max_iters, lam0, lm_up, lm_down,
+           step_eps, state, partials, moved, rc};
+  void* args[] = {&a};
+  const cudaError_t err =
+      staged && solve
+          ? cudaLaunchCooperativeKernel(gn_em_kernel<true>, dim3(blocks), dim3(kBlock), args,
+                                        static_cast<size_t>(smem), stream)
+          : cudaLaunchCooperativeKernel(gn_em_kernel<false>, dim3(blocks), dim3(kBlock), args,
+                                        0, stream);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }

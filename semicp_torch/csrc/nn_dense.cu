@@ -10,19 +10,26 @@
 // row. Exact ties take the lowest index in class-sorted order (the TPU
 // takes the first index within a tile and a strict < across tiles).
 //
-// Bound on the H100: arithmetic on the Q x N_valid pairs (four FMAs and a
-// compare each). The TPU kernel visits every (query tile, target tile)
-// pair and gates each class pass by the tile's [cmin, cmax]. Here the
-// target is sorted by class, so each class is one contiguous segment
-// [start_k, end_k) and only that segment is walked: no pair is tested
-// twice and no label is compared. Design: one block per (128-query tile,
-// class), one thread per query, so a small cloud still fills the card
-// (Q/128 x K blocks). The block finds its segment by a binary search of
-// the sorted labels (no host sync, no prepared table), streams it through
-// shared memory in 128-point chunks (x, y, z, |t|^2) read as broadcasts,
-// keeps the running best (d2, index) in registers and gathers the winner's
-// row once at the end. Queries and targets need no padding to a tile.
-// Precondition: `label_s` is non-decreasing (invalid = num_classes, last).
+// Bound on the H100: at the small clouds it serves (n_pad <= 4096), bytes,
+// mostly the (K, 16, Q) rows it writes; the arithmetic is four flops and a
+// compare for each of the Q x N_valid pairs. The TPU kernel visits every
+// (query tile, target tile) pair and gates each class pass by the tile's
+// [cmin, cmax]. Here the target is sorted by class, so each class is one
+// contiguous segment [seg[k], seg[k+1]), found once per target
+// (corr/nn_dense.py `sort_cloud_by_class`) and read with one load: no pair
+// is tested twice, no label is compared and no block searches. Design, for
+// a latency-bound kernel whose classes are uneven (at n_pad 2048 the bench
+// scene's largest class holds 633 targets, most others 18): one block of
+// eight warps for a 64-query tile and one class, so n_pad 2048 x 20
+// classes is 640 blocks and fills the card. Each thread keeps two queries
+// in registers, so every staged target (x, y, z, |t|^2, one LDS.128
+// broadcast) serves both; the eight warps hold the same queries and each
+// walks an eighth of the segment, so the largest class's walk is an eighth
+// as long. The block stages its segment in shared memory in one go when
+// it fits (1024 points), else in 1024-point chunks, one barrier each. The
+// warps' bests are merged by (d2, index), so the lowest index still wins
+// an exact tie; the winner's row is gathered once and written coalesced.
+// Queries and targets need no padding to a tile.
 
 #include "common.cuh"
 
@@ -31,82 +38,114 @@ namespace {
 using semicp::kAttr;
 using semicp::kInf;
 
-constexpr int kDQB = 128;  // queries per block and targets per staged chunk
+constexpr int kLanes = 32;
+constexpr int kWarps = 8;             // warps of a block, each on part of the segment
+constexpr int kBlock = kLanes * kWarps;
+constexpr int kQ = 2;                 // queries a thread
+constexpr int kTile = kLanes * kQ;    // queries a block
+constexpr int kStage = 1024;          // targets staged at once
 
-__global__ void __launch_bounds__(kDQB)
-nn_dense_kernel(const float* __restrict__ xyz_s, const int* __restrict__ label_s,
+__global__ void __launch_bounds__(kBlock)
+nn_dense_kernel(const float* __restrict__ xyz_s, const int* __restrict__ seg,
                 const float* __restrict__ attrs, const float* __restrict__ q_xyz, int n,
                 int q, float* __restrict__ out_d2, float* __restrict__ out_attr) {
-  __shared__ float sx[kDQB], sy[kDQB], sz[kDQB], st2[kDQB];
-  __shared__ int seg[2];
+  __shared__ float4 sp[kStage];
+  __shared__ float md[kWarps][kTile];
+  __shared__ int mi[kWarps][kTile];
 
-  const int t = threadIdx.x;
+  const int lane = threadIdx.x & (kLanes - 1), warp = threadIdx.x / kLanes;
   const int k = blockIdx.y;
-  const int qi = blockIdx.x * kDQB + t;
-  if (t < 2) {  // first index whose label is >= k (t = 0) or >= k + 1 (t = 1)
-    const int key = k + t;
-    int lo = 0, hi = n;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (label_s[mid] < key) lo = mid + 1;
-      else hi = mid;
-    }
-    seg[t] = lo;
+  const int start = __ldg(seg + k), end = __ldg(seg + k + 1);
+  float q2[kQ], m2x[kQ], m2y[kQ], m2z[kQ], best[kQ];
+  int best_i[kQ];
+#pragma unroll
+  for (int r = 0; r < kQ; ++r) {
+    const int qi = blockIdx.x * kTile + r * kLanes + lane;
+    const bool active = qi < q;
+    const float qx = active ? q_xyz[qi] : 0.f;
+    const float qy = active ? q_xyz[q + qi] : 0.f;
+    const float qz = active ? q_xyz[2 * q + qi] : 0.f;
+    q2[r] = qx * qx + qy * qy + qz * qz;
+    m2x[r] = -2.f * qx;
+    m2y[r] = -2.f * qy;
+    m2z[r] = -2.f * qz;
+    best[r] = kInf;
+    best_i[r] = -1;
   }
-  const bool active = qi < q;
-  const float qx = active ? q_xyz[qi] : 0.f;
-  const float qy = active ? q_xyz[q + qi] : 0.f;
-  const float qz = active ? q_xyz[2 * q + qi] : 0.f;
-  const float q2 = qx * qx + qy * qy + qz * qz;
-  const float m2x = -2.f * qx, m2y = -2.f * qy, m2z = -2.f * qz;
-  __syncthreads();
-  const int start = seg[0], end = seg[1];
 
-  float best = kInf;
-  int best_i = -1;
-  for (int s = start; s < end; s += kDQB) {
-    __syncthreads();
-    const int g = s + t;
-    if (g < end) {
-      const float x = xyz_s[g], y = xyz_s[n + g], z = xyz_s[2 * n + g];
-      sx[t] = x;
-      sy[t] = y;
-      sz[t] = z;
-      st2[t] = x * x + y * y + z * z;
+  for (int s = start; s < end; s += kStage) {
+    const int m = min(kStage, end - s);
+    if (s != start) __syncthreads();  // the last chunk's reads are done
+    // unrolled, so a thread's loads are all in flight before its stores
+#pragma unroll
+    for (int u = 0; u < kStage / kBlock; ++u) {
+      const int j = u * kBlock + threadIdx.x;
+      if (j < m) {
+        const int g = s + j;
+        const float x = xyz_s[g], y = xyz_s[n + g], z = xyz_s[2 * n + g];
+        sp[j] = make_float4(x, y, z, x * x + y * y + z * z);
+      }
     }
     __syncthreads();
-    const int m = min(kDQB, end - s);
-    for (int j = 0; j < m; ++j) {
-      const float d2 = fmaf(m2z, sz[j], fmaf(m2y, sy[j], fmaf(m2x, sx[j], q2 + st2[j])));
-      if (d2 < best) {  // strict: the lowest index wins an exact tie
-        best = d2;
-        best_i = s + j;
+    const int per = (m + kWarps - 1) / kWarps;
+    const int j1 = min(m, (warp + 1) * per);
+#pragma unroll 4
+    for (int j = warp * per; j < j1; ++j) {
+      const float4 t = sp[j];
+#pragma unroll
+      for (int r = 0; r < kQ; ++r) {
+        const float d2 = fmaf(m2z[r], t.z, fmaf(m2y[r], t.y, fmaf(m2x[r], t.x, q2[r] + t.w)));
+        if (d2 < best[r]) {  // strict: the lowest index wins an exact tie
+          best[r] = d2;
+          best_i[r] = s + j;
+        }
       }
     }
   }
-  if (!active) return;
 
-  const bool found = best_i >= 0;
-  out_d2[k * q + qi] = found ? best : kInf;
+  // merge the warps' bests by (d2, index)
+#pragma unroll
+  for (int r = 0; r < kQ; ++r) {
+    md[warp][r * kLanes + lane] = best[r];
+    mi[warp][r * kLanes + lane] = best_i[r];
+  }
+  __syncthreads();
+  if (threadIdx.x >= kTile) return;
+  const int t = threadIdx.x;
+  const int qi = blockIdx.x * kTile + t;
+  if (qi >= q) return;
+  float bd = kInf;
+  int bi = -1;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const float d = md[w][t];
+    const int i = mi[w][t];
+    if (i >= 0 && (bi < 0 || d < bd || (d == bd && i < bi))) {
+      bd = d;
+      bi = i;
+    }
+  }
+  const bool found = bi >= 0;
+  out_d2[k * q + qi] = found ? bd : kInf;
   float* o = out_attr + static_cast<size_t>(k) * kAttr * q + qi;
 #pragma unroll
-  for (int r = 0; r < 9; ++r) o[r * q] = found ? attrs[r * n + best_i] : 0.f;
+  for (int row = 0; row < 9; ++row) o[row * q] = found ? attrs[row * n + bi] : 0.f;
   o[9 * q] = found ? 1.f : 0.f;
 #pragma unroll
-  for (int r = 10; r < kAttr; ++r) o[r * q] = 0.f;
+  for (int row = 10; row < kAttr; ++row) o[row * q] = 0.f;
 }
 
 }  // namespace
 
-// xyz_s (3,n) f32 and label_s (n,) i32 sorted by class (invalid =
-// num_classes, last); attrs16 (16,n) f32 aligned to them (x,y,z | cov6 |
-// ...); q_xyz (3,q) f32. out_d2 (K,q), out_attr (K,16,q) f32.
-extern "C" cudaError_t semicp_nn_dense(const float* xyz_s, const int* label_s,
-                                       const float* attrs16, const float* q_xyz, int n,
-                                       int q, int num_classes, float* out_d2,
-                                       float* out_attr, cudaStream_t stream) {
-  const dim3 grid((q + kDQB - 1) / kDQB, num_classes);
-  nn_dense_kernel<<<grid, kDQB, 0, stream>>>(xyz_s, label_s, attrs16, q_xyz, n, q, out_d2,
-                                             out_attr);
+// xyz_s (3,n) f32 sorted by class (invalid last), seg (K+1,) i32 its class
+// segments (class k is [seg[k], seg[k+1])); attrs16 (16,n) f32 aligned to
+// them (x,y,z | cov6 | ...); q_xyz (3,q) f32. out_d2 (K,q), out_attr
+// (K,16,q) f32.
+extern "C" cudaError_t semicp_nn_dense(const float* xyz_s, const int* seg, const float* attrs16,
+                                       const float* q_xyz, int n, int q, int num_classes,
+                                       float* out_d2, float* out_attr, cudaStream_t stream) {
+  const dim3 grid((q + kTile - 1) / kTile, num_classes);
+  nn_dense_kernel<<<grid, kBlock, 0, stream>>>(xyz_s, seg, attrs16, q_xyz, n, q, out_d2,
+                                               out_attr);
   return cudaGetLastError();
 }

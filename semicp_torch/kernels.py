@@ -61,15 +61,18 @@ _SIGNATURES = {
     # pts4, chunk_box, tile_box, span, order, perm, radius, n, n_raw, num_buckets, counter,
     # out, stream
     "semicp_moments_raw": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
-    # xyz_s, label_s, attrs16, q_xyz, n, q, num_classes, out_d2, out_attr, stream
+    # xyz_s, seg, attrs16, q_xyz, n, q, num_classes, out_d2, out_attr, stream
     "semicp_nn_dense": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
     # pts4, label_s, attrs16, tile_box, chunk_box, q_xyz, q_valid, rc6, log_sem, gate, n,
     # q, tb, num_classes, keys, items, wbox, counters, a6, b3, c, wsum, stream
     "semicp_estep_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                            _P, _P, _P, _P, _P, _P),
-    # z, a6, b3, c, T0, n, blocks, max_iters, lm_lambda0, lm_up, lm_down, step_eps, state,
-    # partials, ticket, stream
-    "semicp_gn_solve": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P, _P),
+    # n, stage, out (4,) int32: blocks, share, smem, staged
+    "semicp_gn_plan": (_I, _I, ctypes.POINTER(ctypes.c_int)),
+    # z, cov6, a6, b3, c, wsum, T_in, n, blocks, share, smem, staged, solve, max_iters,
+    # lm_lambda0, lm_up, lm_down, step_eps, state, partials, moved, rc, stream
+    "semicp_gn_solve": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
+                        _F, _P, _P, _P, _P, _P),
 }
 
 _lib = None

@@ -8,14 +8,17 @@ Port of `semicp/register/em_icp.py` (the pairwise path). Each EM pass:
           corr/nn_dense.py), then the weight softmax collapsed over the
           classes into per-point GN planes (kernel K3, register/estep.py);
           at map scale both in one kernel (K6, register/fused.py)
-  M-step: frozen-correspondence Gauss-Newton/LM (gauss_newton.py; on
-          CUDA kernel G1, one launch a GN pass)
+  M-step: frozen-correspondence Gauss-Newton/LM, then the convergence
+          measure ||log(T_new T_old^-1)||, the correspondence count and
+          the next E-step's moved source and rotated covariances
+          (gauss_newton.py `em_tail`; on CUDA kernel G1, one launch)
   check:  ||log(T_new T_old^-1)|| < trans_eps
 
 The JAX `while_loop` becomes a host loop whose only device sync is the
 convergence flag, read once per EM pass. Everything else is queued
-without waiting on the device: the GN passes keep their pose and loop
-state on the device, and the host never reads them.
+without waiting on the device: G1 keeps the pose and loop state on the
+device, and the host never reads them. On CUDA an EM pass is the E-step's
+kernels (K2 or K4, then K3; or K6), G1 and the flag.
 
 Engines, as in the JAX package: "sparse" (K2), "dense" (K4) and the
 plain "xla". On CUDA "auto" resolves to "sparse" at n_pad >=
@@ -41,11 +44,9 @@ from semicp_torch.corr.nn_sparse import (
     class_nn_attrs_sparse,
     prepare_sparse,
 )
-from semicp_torch.geom import sym3
-from semicp_torch.geom.se3 import se3_inverse, se3_log
 from semicp_torch.register.estep import estep_reduce
 from semicp_torch.register.fused import estep_sparse_fused
-from semicp_torch.register.gauss_newton import apply_T_planar, gn_solve
+from semicp_torch.register.gauss_newton import em_tail, move_source, tail_outputs
 
 ENGINES = ("auto", "dense", "sparse", "xla")
 
@@ -88,19 +89,20 @@ def _prepare_target(tgt: Cloud, cfg: Config, engine: str):
     if engine == "sparse":
         return "sparse", prepare_sparse(tgt, K, cfg.corr.cell)
     if engine == "dense":
-        xyz_s, label_s, attrs16 = sort_cloud_by_class(tgt.xyz, tgt.label, tgt.cov6, tgt.valid, K)
-        return "sorted", {"xyz_s": xyz_s, "label_s": label_s, "attrs16": attrs16}
+        xyz_s, label_s, attrs16, seg = sort_cloud_by_class(tgt.xyz, tgt.label, tgt.cov6,
+                                                           tgt.valid, K)
+        return "sorted", {"xyz_s": xyz_s, "label_s": label_s, "attrs16": attrs16, "seg": seg}
     return "cloud", tgt
 
 
-def _estep(tgt_prep, src: Cloud, log_sem, T, cfg: Config, gate, gate2):
-    """Per-class NN + weight/class reduction for all source points at T.
+def _estep(tgt_prep, src: Cloud, log_sem, moved, rc, cfg: Config, gate, gate2):
+    """Per-class NN + weight/class reduction for all source points, moved
+    to the current pose: moved (3,N) and their rotated covariances rc
+    (6,N), as `move_source` or the last EM pass's G1 left them.
 
     Returns (a6 (6,N), b3 (3,N), c (N), wsum (N)).
     """
     K = cfg.cloud.num_classes
-    moved = torch.stack(apply_T_planar(T, tuple(src.xyz)))      # (3, N)
-    rc = sym3.pack(sym3.rotate(T[:3, :3], tuple(src.cov6)))    # rotated src cov
     kind, prep = tgt_prep
     if kind == "sparse":
         if use_fused_estep(cfg, src.n_pad):
@@ -109,7 +111,7 @@ def _estep(tgt_prep, src: Cloud, log_sem, T, cfg: Config, gate, gate2):
         nn_d2, attrs = class_nn_attrs_sparse(prep, moved, src.valid, K, gate)
     elif kind == "sorted":
         nn_d2, attrs = class_nn_attrs_dense(prep["xyz_s"], prep["label_s"], prep["attrs16"],
-                                            moved, K)
+                                            prep["seg"], moved, K)
     else:
         nn_d2, attrs = class_nn_attrs_plain(prep.xyz, prep.label, prep.valid,
                                             prep.cov6, moved, K)
@@ -146,12 +148,13 @@ def _align(src: Cloud, tgt: Cloud, T0, gate: float, max_iters: int, cfg: Config,
     cost = torch.zeros((), dtype=torch.float32, device=dev)
     n_corr = torch.zeros((), dtype=torch.float32, device=dev)
     H = torch.zeros((6, 6), dtype=torch.float32, device=dev)
+    # G1's outputs, kept for the align (two states, alternating by pass)
+    out = tail_outputs(src.n_pad, dev, 2) if src.xyz.is_cuda else [None, None]
+    moved, rc = move_source(T, src.xyz, src.cov6, out[0])
     while it < max_iters:
-        a6, b3, c, wsum = _estep(tgt_prep, src, log_sem, T, cfg, gate_t, gate2)
-        T_new, cost, _, H = gn_solve(T, src.xyz, a6, b3, c, cfg.gn)
-        step = torch.linalg.vector_norm(se3_log(T_new @ se3_inverse(T)))
-        n_corr = torch.sum(wsum)
-        T = T_new
+        a6, b3, c, wsum = _estep(tgt_prep, src, log_sem, moved, rc, cfg, gate_t, gate2)
+        T, cost, _, H, step, n_corr, moved, rc = em_tail(T, src.xyz, src.cov6, a6, b3, c,
+                                                         wsum, cfg.gn, out[it % 2])
         it += 1
         if not bool(step > cfg.em.trans_eps):   # the one sync per EM pass
             break
@@ -180,7 +183,7 @@ def make_align_fn(cfg: Config):
         engine = resolve_engine(cfg, dev)
         if T0 is None:
             T0 = torch.eye(4, dtype=torch.float32, device=dev)
-        T0 = torch.as_tensor(T0, dtype=torch.float32, device=dev)
+        T0 = torch.as_tensor(T0, dtype=torch.float32, device=dev).contiguous()
         g = float(cfg.corr.max_dist if gate is None else gate)
         mi = int(cfg.em.max_iters if max_iters is None else max_iters)
         return _align(src, tgt, T0, g, mi, cfg, engine)

@@ -1,33 +1,61 @@
-"""M-step solver: Gauss-Newton with LM damping over SE(3), planar.
+"""M-step solver and the end of the EM pass: Gauss-Newton with LM damping
+over SE(3), planar.
 
-Port of `semicp/register/gauss_newton.py`. `gn_solve` takes the plain
-version on CPU tensors and launches kernel G1 (csrc/gn_solve.cu) on CUDA
-ones: one launch a GN pass, the 28 sums, the 6x6 solve, se3_exp and the
-LM schedule all on the device, the pose and the loop state kept there.
+Port of `semicp/register/gauss_newton.py`, and of the lines of
+`semicp/register/em_icp.py` that XLA fuses with it into one program: the
+convergence test and the next E-step's inputs.
 
-`gn_solve_plain` is the JAX `while_loop` (exit when `step <= step_eps` or
-after `max_iters` passes) as a fixed loop of `max_iters` passes in which
-every state variable is frozen by a mask once the loop would have exited.
-The result is identical and the loop never waits on the device. The 6x6
-solve is `torch.linalg.solve_ex` in full f32 (TF32 is off package-wide;
-`solve_ex` does not sync to check for singularity, and a singular system
-gives non-finite steps that freeze the loop, as the JAX version's
-`step > step_eps` test does on NaN). G1 keeps these semantics: each pass
-whose state's step is not above `step_eps` returns at once.
+* `gn_solve_plain` is the JAX `while_loop` (exit when `step <= step_eps`
+  or after `max_iters` passes) as a fixed loop of `max_iters` passes in
+  which every state variable is frozen by a mask once the loop would have
+  exited. The result is identical and the loop never waits on the device.
+  The 6x6 solve is `torch.linalg.solve_ex` in full f32 (TF32 is off
+  package-wide; `solve_ex` does not sync to check for singularity, and a
+  singular system gives non-finite steps that freeze the loop, as the JAX
+  version's `step > step_eps` test does on NaN).
+* `em_tail_plain` is an EM pass after its E-step: `gn_solve_plain`, then
+  `em_step = ||se3_log(T T_in^-1)||`, `n_corr = sum(wsum)` and the next
+  E-step's inputs at the new pose (`move_source_plain`). It is the CPU
+  path and G1's reference.
+* `em_tail` takes `em_tail_plain` on CPU tensors and launches kernel G1
+  (csrc/gn_solve.cu) on CUDA ones: every GN pass, the solve, se3_exp, the
+  LM schedule, em_step, n_corr, moved and rc in one cooperative launch,
+  the state kept on the device. `move_source` is G1 with no GN pass (the
+  first E-step's inputs).
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 
 from semicp_torch import kernels
 from semicp_torch.config import GNConfig
-from semicp_torch.geom.se3 import se3_exp
+from semicp_torch.geom import sym3
+from semicp_torch.geom.se3 import se3_exp, se3_inverse, se3_log
 from semicp_torch.register.residuals import normal_equations_collapsed
 
-GN_BLOCK = 256        # threads of a G1 block (csrc/gn_solve.cu kBlock)
-GN_BLOCKS_PER_SM = 2  # blocks of a pass on each SM (its __launch_bounds__)
-GN_STATE = 64         # floats of G1's state: T, H, cost, step, lambda, passes
+# G1's state (csrc/gn_solve.cu), GN_STATE floats: T at S_T (4,4), H at S_H
+# (6,6), then cost, GN step, lambda, passes run, em_step and n_corr
+GN_STATE = 64
+S_T, S_H, S_COST, S_STEP, S_PASSES, S_EM_STEP, S_N_CORR = 0, 16, 52, 53, 55, 56, 57
+GN_ROW = 32     # floats of a block's partial row of G1's sums
+
+# (device index, N, stage) -> (blocks, share, smem bytes, staged, partials)
+_PLANS: dict = {}
+
+
+class EMTail(NamedTuple):
+    T: torch.Tensor        # (4,4) pose after the M-step
+    cost: torch.Tensor     # () the last GN pass's cost, at its starting pose
+    step: torch.Tensor     # () the last GN step's norm
+    H: torch.Tensor        # (6,6) the last GN pass's Hessian
+    em_step: torch.Tensor  # () ||se3_log(T T_in^-1)||
+    n_corr: torch.Tensor   # () sum of the E-step's wsum
+    moved: torch.Tensor    # (3,N) the source at T
+    rc: torch.Tensor       # (6,N) the source covariances rotated by T
 
 
 def apply_T_planar(T, z):
@@ -71,32 +99,115 @@ def gn_solve_plain(T0, src_planes, a6, b3, c, cfg: GNConfig):
     return T, cost, step, H
 
 
-def gn_solve(T0, src_planes, a6, b3, c, cfg: GNConfig):
-    """`gn_solve_plain`'s result: by it on CPU tensors, by G1 on CUDA.
+def move_source_plain(T, z, cov6):
+    """The E-step's inputs at T: the moved source (3,N) and its rotated
+    covariances R C R^T (6,N)."""
+    moved = torch.stack(apply_T_planar(T, tuple(z)))
+    rc = sym3.pack(sym3.rotate(T[:3, :3], tuple(cov6)))
+    return moved, rc
 
-    src_planes: the (3, N) source planes (or three (N,) planes); a6 (6, N),
-    b3 (3, N), c (N,): the E-step's collapsed planes; T0 (4, 4). On CUDA
-    the four results are views of one device state, with nothing read back
-    to the host; the state is left in `kernels.WALKED["gn_solve"]`.
-    """
-    if not T0.is_cuda:
-        return gn_solve_plain(T0, src_planes, a6, b3, c, cfg)
-    dev = T0.device
-    z = src_planes if torch.is_tensor(src_planes) else torch.stack(tuple(src_planes))
+
+def em_tail_plain(T_in, z, cov6, a6, b3, c, wsum, cfg: GNConfig) -> EMTail:
+    """An EM pass after its E-step, from the pose T_in: the M-step, the
+    convergence measure, the correspondence count, and the next E-step's
+    inputs at the new pose."""
+    T, cost, step, H = gn_solve_plain(T_in, z, a6, b3, c, cfg)
+    em_step = torch.linalg.vector_norm(se3_log(T @ se3_inverse(T_in)))
+    moved, rc = move_source_plain(T, z, cov6)
+    return EMTail(T, cost, step, H, em_step, torch.sum(wsum), moved, rc)
+
+
+def launch_plan(dev: torch.device, n: int, stage: bool = True):
+    """G1's launch plan for n points on dev, (blocks, points a block,
+    dynamic shared memory bytes, staged), and its partials scratch, made
+    once and kept (the kernels run in stream order, so calls share the
+    scratch)."""
+    key = (dev.index, n, stage)
+    plan = _PLANS.get(key)
+    if plan is None:
+        out = (ctypes.c_int * 4)()
+        with torch.cuda.device(dev):
+            err = kernels.library().semicp_gn_plan(n, int(stage), out)
+        if err != 0:
+            raise RuntimeError(f"semicp_gn_plan: CUDA error {err}")
+        blocks, share, smem, staged = out
+        partials = torch.empty((2, blocks, GN_ROW), dtype=torch.float32, device=dev)
+        plan = _PLANS[key] = (blocks, share, smem, staged, partials)
+    return plan
+
+
+def _check_source(T, z, cov6):
     n = z.shape[1]
+    for t, name, shape in ((z, "z", (3, n)), (cov6, "cov6", (6, n)), (T, "T", (4, 4))):
+        kernels.check(t, name, torch.float32, shape)
+    return n
+
+
+class TailOut:
+    """Buffers that G1 writes, kept across calls: a state (GN_STATE,), moved
+    (3,N) and rc (6,N), with the `EMTail` of views into them made once."""
+
+    def __init__(self, state, moved, rc):
+        self.state = state
+        self.ptrs = (state.data_ptr(), moved.data_ptr(), rc.data_ptr())
+        self.tail = EMTail(state[S_T:S_T + 16].view(4, 4), state[S_COST], state[S_STEP],
+                           state[S_H:S_H + 36].view(6, 6), state[S_EM_STEP], state[S_N_CORR],
+                           moved, rc)
+
+
+def tail_outputs(n: int, dev, states: int = 1) -> list:
+    """`states` TailOuts for n points on dev that share one moved and one rc.
+    An EM loop takes two, alternating by pass, so that G1 never writes the
+    pose it starts from; each E-step reads moved and rc before the next G1
+    writes them."""
     f32 = torch.float32
-    z, a6, b3, c, T0 = (t.contiguous() for t in (z, a6, b3, c, T0))
-    for t, name, shape in ((z, "src_planes", (3, n)), (a6, "a6", (6, n)), (b3, "b3", (3, n)),
-                           (c, "c", (n,)), (T0, "T0", (4, 4))):
-        kernels.check(t, name, f32, shape)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = max(1, min(-(-n // GN_BLOCK), GN_BLOCKS_PER_SM * sms))
-    state = torch.empty((GN_STATE,), dtype=f32, device=dev)
-    partials = torch.empty((blocks, 28), dtype=f32, device=dev)
-    ticket = torch.empty((1,), dtype=torch.int32, device=dev)
-    kernels.launch("semicp_gn_solve", "gn_solve", dev, z.data_ptr(), a6.data_ptr(),
-                   b3.data_ptr(), c.data_ptr(), T0.data_ptr(), n, blocks, cfg.max_iters,
-                   cfg.lm_lambda0, cfg.lm_up, cfg.lm_down, cfg.step_eps, state.data_ptr(),
-                   partials.data_ptr(), ticket.data_ptr())
-    kernels.WALKED["gn_solve"] = state
-    return state[:16].view(4, 4), state[52], state[53], state[16:52].view(6, 6)
+    st = torch.empty((states, GN_STATE), dtype=f32, device=dev)
+    moved = torch.empty((3, n), dtype=f32, device=dev)
+    rc = torch.empty((6, n), dtype=f32, device=dev)
+    return [TailOut(st[i], moved, rc) for i in range(states)]
+
+
+def move_source(T, z, cov6, out: TailOut | None = None):
+    """`move_source_plain`'s result: by it on CPU tensors, by G1 with no GN
+    pass on CUDA, into out's moved and rc where given."""
+    if not T.is_cuda:
+        return move_source_plain(T, z, cov6)
+    dev = T.device
+    n = _check_source(T, z, cov6)
+    blocks, share, _, _, _ = launch_plan(dev, n)
+    out = out or tail_outputs(n, dev)[0]
+    kernels.launch("semicp_gn_solve", "gn_solve", dev, z.data_ptr(), cov6.data_ptr(),
+                   None, None, None, None, T.data_ptr(), n, blocks, share, 0, 0, 0, 0,
+                   0.0, 0.0, 0.0, 0.0, None, None, *out.ptrs[1:])
+    return out.tail.moved, out.tail.rc
+
+
+def em_tail(T_in, z, cov6, a6, b3, c, wsum, cfg: GNConfig, out: TailOut | None = None,
+            stage: bool = True) -> EMTail:
+    """`em_tail_plain`'s result: by it on CPU tensors, by G1 on CUDA.
+
+    z (3,N) source planes, cov6 (6,N) its covariances; a6 (6,N), b3 (3,N),
+    c (N,), wsum (N,): the E-step's planes; T_in (4,4). On CUDA one kernel
+    launch, whose results are views of out's buffers (`tail_outputs`; new
+    ones where not given): the state (left in `kernels.WALKED["gn_solve"]`;
+    element 55 counts the GN passes that ran), moved and rc. out's state
+    must not hold T_in. stage=False reads the planes from L2 in every
+    pass, the path G1 takes above what shared memory holds, for checking
+    it at any N.
+    """
+    if not T_in.is_cuda:
+        return em_tail_plain(T_in, z, cov6, a6, b3, c, wsum, cfg)
+    dev = T_in.device
+    n = _check_source(T_in, z, cov6)
+    for t, name, shape in ((a6, "a6", (6, n)), (b3, "b3", (3, n)), (c, "c", (n,)),
+                           (wsum, "wsum", (n,))):
+        kernels.check(t, name, torch.float32, shape)
+    blocks, share, smem, staged, partials = launch_plan(dev, n, stage)
+    out = out or tail_outputs(n, dev)[0]
+    kernels.launch("semicp_gn_solve", "gn_solve", dev, z.data_ptr(), cov6.data_ptr(),
+                   a6.data_ptr(), b3.data_ptr(), c.data_ptr(), wsum.data_ptr(),
+                   T_in.data_ptr(), n, blocks, share, smem, staged, 1, cfg.max_iters,
+                   cfg.lm_lambda0, cfg.lm_up, cfg.lm_down, cfg.step_eps, out.ptrs[0],
+                   partials.data_ptr(), *out.ptrs[1:])
+    kernels.WALKED["gn_solve"] = out.state
+    return out.tail

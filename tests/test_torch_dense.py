@@ -58,6 +58,35 @@ def test_sort_cloud_by_class_matches_jax(rng):
         np.testing.assert_array_equal(t.numpy(), np.asarray(j), err_msg=name)
 
 
+@pytest.mark.parametrize("case", ["mixed", "absent", "all_invalid"])
+def test_sort_cloud_by_class_segments(rng, case):
+    """The (K+1,) class segments K4 reads against a numpy count of the
+    sorted labels: unlabelled, invalid and past-the-classes points
+    outside every segment, classes absent from the target (empty
+    segments, first and last ones included), and an all-invalid target
+    (every segment empty)."""
+    K = 6
+    xyz, lab, val, cov6, _ = nn_fixture(rng, 1000, K)
+    if case == "mixed":
+        lab[rng.uniform(size=lab.shape) < 0.05] = -1
+        lab[rng.uniform(size=lab.shape) < 0.03] = K + 1
+    elif case == "absent":
+        lab = np.where(np.isin(lab, (0, 2, 5)), 3, lab).astype(np.int32)
+    else:
+        val[:] = False
+    _, label_s, _, seg = sort_cloud_by_class(*map(torch.from_numpy, (xyz, lab, cov6, val)), K)
+    label_s, seg = label_s.numpy(), seg.numpy()
+    assert seg.dtype == np.int32 and seg.shape == (K + 1,)
+    counts = np.bincount(label_s[label_s < K], minlength=K)
+    np.testing.assert_array_equal(seg, np.concatenate([[0], np.cumsum(counts)]))
+    for k in range(K):
+        assert (label_s[seg[k]:seg[k + 1]] == k).all()
+    if case == "absent":
+        assert (counts[[0, 2, 5]] == 0).all() and (counts[[1, 3, 4]] > 0).all()
+    if case == "all_invalid":
+        assert (seg == 0).all()
+
+
 def test_class_nn_attrs_dense_matches_pallas_interpret(rng):
     N, K = 1024, 6
     xyz, lab, val, cov6, q = nn_fixture(rng, N, K)

@@ -24,6 +24,9 @@ import semicp
 import semicp_torch
 from semicp.data import make_pair as j_make_pair
 from semicp.data import make_scene as j_make_scene
+from semicp.geom.se3 import se3_inverse as j_se3_inverse
+from semicp.geom.se3 import se3_log as j_se3_log
+from semicp.register.gauss_newton import apply_T_planar as j_apply_T_planar
 from semicp.register.gauss_newton import gn_solve as j_gn_solve
 from semicp.register.residuals import normal_equations_collapsed as j_normal_eq
 from semicp_torch.config import config_from_dict
@@ -31,7 +34,7 @@ from semicp_torch.convert import align_result_to_numpy, cloud_from_numpy
 from semicp_torch.data import make_pair as t_make_pair
 from semicp_torch.data import make_scene as t_make_scene
 from semicp_torch.register.em_icp import resolve_engine
-from semicp_torch.register.gauss_newton import gn_solve as t_gn_solve
+from semicp_torch.register.gauss_newton import em_tail, em_tail_plain, move_source
 from semicp_torch.register.gauss_newton import gn_solve_plain as t_gn_solve_plain
 from semicp_torch.register.residuals import normal_equations_collapsed as t_normal_eq
 
@@ -97,14 +100,14 @@ def far_start_planes():
 
 
 def gn_both(a6, b3, c, z, max_iters):
-    """gn_solve of both packages from the identity: (JAX's, the port's
-    plain), each as numpy (T, cost, step, H)."""
+    """gn_solve of both packages from the identity: (JAX's, the port's),
+    each as numpy (T, cost, step, H)."""
     cfg = semicp.Config().gn.__class__(max_iters=max_iters)
     tcfg = semicp_torch.Config().gn.__class__(max_iters=max_iters)
     rj = j_gn_solve(jnp.eye(4), tuple(jnp.asarray(z)), tuple(jnp.asarray(a6)),
                     tuple(jnp.asarray(b3)), jnp.asarray(c), cfg)
-    rt = t_gn_solve(torch.eye(4), tuple(torch.from_numpy(z)), torch.from_numpy(a6),
-                    torch.from_numpy(b3), torch.from_numpy(c), tcfg)
+    rt = t_gn_solve_plain(torch.eye(4), tuple(torch.from_numpy(z)), torch.from_numpy(a6),
+                          torch.from_numpy(b3), torch.from_numpy(c), tcfg)
     return [np.asarray(v) for v in rj], [v.numpy() for v in rt]
 
 
@@ -146,15 +149,69 @@ def test_gn_solve_matches_jax(rng, case):
 
 @pytest.mark.parametrize("planes", ["tensor", "tuple"])
 def test_gn_solve_dispatch(rng, planes):
-    """On CPU tensors gn_solve is gn_solve_plain to the bit, with the
-    source as the (3, N) planes em_icp passes or as three planes."""
+    """On CPU tensors G1's wrappers take their plain versions to the bit:
+    em_tail is em_tail_plain, whose M-step is gn_solve_plain, and
+    move_source is em_tail's transform alone, with the source as the
+    (3, N) planes em_icp passes or as three planes."""
     a6, b3, c, z = (torch.from_numpy(a) for a in collapsed_planes(rng))
+    cov6 = torch.from_numpy(rng.normal(size=(6, z.shape[1])).astype(np.float32))
+    wsum = torch.from_numpy(rng.uniform(size=z.shape[1]).astype(np.float32))
     cfg = semicp_torch.Config().gn
     src = z if planes == "tensor" else tuple(z)
-    out = t_gn_solve(torch.eye(4), src, a6, b3, c, cfg)
-    ref = t_gn_solve_plain(torch.eye(4), tuple(z), a6, b3, c, cfg)
+    out = em_tail(torch.eye(4), src, cov6, a6, b3, c, wsum, cfg)
+    ref = em_tail_plain(torch.eye(4), z, cov6, a6, b3, c, wsum, cfg)
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
+    for a, b in zip(out, t_gn_solve_plain(torch.eye(4), tuple(z), a6, b3, c, cfg)):
+        assert torch.equal(a, b)
+    for a, b in zip(move_source(out.T, src, cov6), (out.moved, out.rc)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("angle", [1e-4, 3e-4, 1e-3, 0.05])
+def test_em_tail_plain_matches_jax(rng, angle):
+    """The plain EM-pass tail against the JAX package's lines that it
+    replaces (semicp/register/em_icp.py `_estep` and the loop body), from
+    a general pose T_in to the minimum a motion of `angle` rad (and about
+    `angle` m) away, on the port's T_new: the moved source and rotated
+    covariances to 4 ulp of their scale (f32 products and sums in one
+    order; XLA may contract them), em_step to 2e-6 absolute and 1e-4
+    relative (se3_log of T_new T_in^-1 in f32 on both sides; at 1e-4 to
+    1e-3 rad the series' 1/theta^2 terms cancel in both, which moves only
+    the W^2 term, of order theta^2), n_corr to 1e-5 relative (f32 sums of
+    2048 terms in different orders), and T_new itself to JAX's gn_solve
+    within 1e-5."""
+    a6, _, _, z = collapsed_planes(rng)
+    n = z.shape[1]
+    cov6 = rng.normal(size=(6, n)).astype(np.float32)
+    wsum = rng.uniform(size=n).astype(np.float32)
+    T_in = np.asarray(semicp.geom.se3_exp(jnp.asarray([0.4, -1.2, 0.3, 0.2, -0.1, 0.5],
+                                                      jnp.float32)))
+    axis = np.array([0.3, -0.5, 0.8]) / np.linalg.norm([0.3, -0.5, 0.8])
+    motion = (angle * np.concatenate([[0.6, -0.3, 0.4], axis])).astype(np.float32)
+    T_star = np.asarray(semicp.geom.se3_exp(jnp.asarray(motion))) @ T_in
+    A = np.asarray(semicp.geom.sym3.to_matrix(tuple(jnp.asarray(a6))))
+    x = T_star[:3, :3] @ z + T_star[:3, 3:]
+    b3 = np.einsum("nij,jn->in", A, x).astype(np.float32)
+    c = np.einsum("in,in->n", x, b3).astype(np.float32)
+    cfg = semicp_torch.Config().gn
+    out = em_tail_plain(*(torch.from_numpy(np.array(v, np.float32))
+                          for v in (T_in, z, cov6, a6, b3, c, wsum)), cfg)
+    T_new = out.T.numpy()
+    Tj = np.asarray(j_gn_solve(jnp.asarray(T_in), tuple(jnp.asarray(z)), tuple(jnp.asarray(a6)),
+                               tuple(jnp.asarray(b3)), jnp.asarray(c), semicp.Config().gn)[0])
+    np.testing.assert_allclose(T_new, Tj, atol=1e-5)
+    Tn = jnp.asarray(T_new)
+    moved_j = np.stack([np.asarray(p) for p in j_apply_T_planar(Tn, tuple(jnp.asarray(z)))])
+    rc_j = np.stack([np.asarray(p) for p in semicp.geom.sym3.rotate(Tn[:3, :3],
+                                                                    tuple(jnp.asarray(cov6)))])
+    for name, got, ref in (("moved", out.moved.numpy(), moved_j), ("rc", out.rc.numpy(), rc_j)):
+        np.testing.assert_allclose(got, ref, rtol=0, atol=4 * np.spacing(np.abs(ref).max()),
+                                   err_msg=name)
+    step_j = float(jnp.linalg.norm(j_se3_log(Tn @ j_se3_inverse(jnp.asarray(T_in)))))
+    np.testing.assert_allclose(float(out.em_step), step_j, rtol=1e-4, atol=2e-6)
+    assert abs(float(out.em_step) - np.linalg.norm(motion)) < 1e-6 + 1e-3 * np.linalg.norm(motion)
+    np.testing.assert_allclose(float(out.n_corr), float(jnp.sum(jnp.asarray(wsum))), rtol=1e-5)
 
 
 def test_align_matches_jax_and_gt(pair):
@@ -174,6 +231,31 @@ def test_align_matches_jax_and_gt(pair):
         terr, rerr = pose_errors(T, T_gt)
         assert terr < 0.02 and rerr < 0.005, (terr, rerr)
     np.testing.assert_allclose(float(rt.n_corr), float(rj.n_corr), rtol=1e-3)
+
+
+@pytest.mark.parametrize("start", ["identity", "offset"])
+def test_align_keeps_jax_iterations(pair, start):
+    """The CPU align, whose EM pass ends in the plain tail, takes as many
+    EM iterations as semicp.align and lands within 1e-4 of it, from the
+    identity and from a start 0.2 m / 0.05 rad off."""
+    src, slab, tgt, tlab, T_gt = pair
+    cj, ct = semicp.Config().override(OVER), semicp_torch.Config().override(OVER)
+    T0 = np.eye(4, dtype=np.float32)
+    if start == "offset":
+        T0 = np.array(semicp.geom.se3_exp(jnp.asarray([0.2, 0.1, 0.0, 0.0, 0.0, 0.05],
+                                                      jnp.float32)))
+    rj = semicp.align(semicp.preprocess_cloud(semicp.make_cloud(src, slab, n_pad=2048), cj),
+                      semicp.preprocess_cloud(semicp.make_cloud(tgt, tlab, n_pad=2048), cj), cj,
+                      T_init=jnp.asarray(T0))
+    rt = semicp_torch.align(
+        semicp_torch.preprocess_cloud(semicp_torch.make_cloud(src, slab, n_pad=2048,
+                                                              device="cpu"), ct),
+        semicp_torch.preprocess_cloud(semicp_torch.make_cloud(tgt, tlab, n_pad=2048,
+                                                              device="cpu"), ct), ct,
+        T_init=torch.from_numpy(T0))
+    np.testing.assert_allclose(rt.T.numpy(), np.asarray(rj.T), atol=1e-4)
+    assert int(rt.iterations) == int(rj.iterations)
+    assert bool(rt.converged) and bool(rj.converged)
 
 
 def test_align_on_jax_preprocessed_clouds(pair):
