@@ -11,9 +11,11 @@ follow `semicp` so that each module's counterpart is easy to find:
              the robust and pipelined aligners, GICP and NDT baselines
   data/      KITTI, PCD and native scan loaders; synthetic scenes (numpy)
   eval/      ATE / RPE (numpy, float64)
-  utils/     JSONL metrics, phase timers, device drain
-  slam/      the scan prefetcher
-  cli/       run_pair and run_odometry (--device cuda|cpu)
+  utils/     JSONL metrics, phase timers, device drain, SLAM checkpoints
+  slam/      keyframes, the pose graph and its LM, loop closure, submaps,
+             the scan prefetcher
+  dist/      batched alignment of independent pairs on one device
+  cli/       run_pair, run_odometry and run_slam (--device cuda|cpu)
 
 The hand-written CUDA kernels live in csrc/ and are built by nvcc at
 first use (kernels.py). On a CPU tensor every kernel wrapper takes its

@@ -1,11 +1,18 @@
-"""GICP plane-to-plane per-point covariances from radius neighbourhoods.
+"""GICP plane-to-plane per-point covariances.
 
-Port of `semicp/cloud/covariance.py` (the radius method). The radius is
-density-adaptive by default: the median k-th-nearest-neighbour distance
-over a strided sample of points, times 1.3. The neighbourhood moments
-come from cloud/moments.py (on CUDA, kernel K1 over a class-major cloud
-and K5 over a raw-layout one), then the epilogue
-C = S2/n - mean mean^T and the rank-1 GICP clamp C -> I - (1-eps) n n^T.
+Port of `semicp/cloud/covariance.py`, both methods:
+
+* "radius" (the default): the radius is density-adaptive unless set, the
+  median k-th-nearest-neighbour distance over a strided sample of points
+  times 1.3. The neighbourhood moments come from cloud/moments.py (on
+  CUDA, kernel K1 over a class-major cloud and K5 over a raw-layout one),
+  then the epilogue C = S2/n - mean mean^T.
+* "knn": the reference's k nearest neighbours (corr/bruteforce.py
+  `knn_self`, plain torch on the cloud's device; the JAX package has no
+  Pallas kernel for it), gathered and centred per point.
+
+Both end in the rank-1 GICP clamp C -> I - (1-eps) n n^T, with the
+identity where a point has fewer than 3 neighbours.
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ import torch
 from semicp_torch.cloud.cloud import Cloud
 from semicp_torch.cloud.moments import neighborhood_moments_auto
 from semicp_torch.config import CovConfig
+from semicp_torch.corr.bruteforce import knn_self
 from semicp_torch.corr.layout import LAYOUT_CM, sort_cloud_cm
 from semicp_torch.geom import sym3
 
@@ -82,15 +90,38 @@ def _estimate_radius(cloud: Cloud, cfg: CovConfig, class_aware: bool,
     return sym3.pack(tuple(torch.where(enough, r, e) for r, e in zip(reg, eye)))
 
 
+def _estimate_knn(cloud: Cloud, cfg: CovConfig, class_aware: bool):
+    idx, _d2, nvalid = knn_self(cloud.xyz, torch.clamp(cloud.label, min=0), cloud.valid,
+                                k=cfg.k, class_aware=class_aware)
+    w = nvalid.to(torch.float32)                     # (N, k)
+    cnt = torch.sum(w, -1)
+    safe = torch.clamp(cnt, min=1.0)
+    # planar neighbour gathers: (N, k) per coordinate
+    nx, ny, nz = cloud.xyz[0][idx], cloud.xyz[1][idx], cloud.xyz[2][idx]
+    mx = torch.sum(nx * w, -1) / safe
+    my = torch.sum(ny * w, -1) / safe
+    mz = torch.sum(nz * w, -1) / safe
+    cx = (nx - mx[:, None]) * w
+    cy = (ny - my[:, None]) * w
+    cz = (nz - mz[:, None]) * w
+    # empirical covariance; w in {0, 1} so w^2 == w
+    cov = (torch.sum(cx * cx, -1) / safe, torch.sum(cy * cy, -1) / safe,
+           torch.sum(cz * cz, -1) / safe, torch.sum(cx * cy, -1) / safe,
+           torch.sum(cx * cz, -1) / safe, torch.sum(cy * cz, -1) / safe)
+    reg = sym3.regularize_gicp(cov, cfg.eps)
+    enough = (cnt >= 3.0) & cloud.valid
+    eye = sym3.identity_like(cov[0])
+    return sym3.pack(tuple(torch.where(enough, r, e) for r, e in zip(reg, eye)))
+
+
 def estimate_covariances(cloud: Cloud, cfg: CovConfig, class_aware: bool = True,
                          num_classes: int | None = None):
     """(6, N_pad) regularized covariance planes; identity where a point
-    has fewer than 3 neighbours or is padding."""
+    has fewer than 3 neighbours or is padding. `cfg.method` picks the
+    neighbourhood: "radius" (the moments kernels) or "knn" (knn_self)."""
     if cfg.method == "radius":
         return _estimate_radius(cloud, cfg, class_aware, num_classes)
-    raise NotImplementedError(
-        f"cov.method={cfg.method!r}: the kNN covariances (knn_self) are still "
-        "to port (ROADMAP Queue 1, item 1); use method='radius'")
+    return _estimate_knn(cloud, cfg, class_aware)
 
 
 def preprocess_cloud(cloud: Cloud, cfg, class_aware: bool = True) -> Cloud:

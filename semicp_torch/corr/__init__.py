@@ -1,4 +1,4 @@
-from semicp_torch.corr.bruteforce import class_nn  # noqa: F401
+from semicp_torch.corr.bruteforce import class_nn, knn_self  # noqa: F401
 from semicp_torch.corr.layout import (  # noqa: F401
     LAYOUT_CM,
     class_morton_order,

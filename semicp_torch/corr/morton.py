@@ -36,6 +36,12 @@ def morton_codes(xyz, valid, cell: float):
     return torch.where(valid, code, torch.full_like(code, INVALID_CODE))
 
 
+def morton_order(xyz, valid, cell: float):
+    """Permutation sorting points by Morton code, invalid last; equal codes
+    keep their input order (a stable sort, as jnp.argsort's)."""
+    return torch.argsort(morton_codes(xyz, valid, cell), stable=True)
+
+
 def tile_aabbs(xyz, valid, tile: int):
     """Per-tile AABBs over VALID points: (3, N) -> (n_tiles, 3) lo and hi.
 

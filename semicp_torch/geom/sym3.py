@@ -36,6 +36,23 @@ def identity_like(x, scale=1.0):
     return (one, one, one, zero, zero, zero)
 
 
+def add(a, b):
+    return tuple(ai + bi for ai, bi in zip(a, b))
+
+
+def scale(a, s):
+    return tuple(ai * s for ai in a)
+
+
+def matvec(c, v):
+    """Symmetric matrix-vector product on planes: returns (3,) vec planes."""
+    xx, yy, zz, xy, xz, yz = c
+    vx, vy, vz = v
+    return (xx * vx + xy * vy + xz * vz,
+            xy * vx + yy * vy + yz * vz,
+            xz * vx + yz * vy + zz * vz)
+
+
 def rotate(R, c):
     """R C R^T for one (3,3) rotation R and planar sym C."""
     xx, yy, zz, xy, xz, yz = c

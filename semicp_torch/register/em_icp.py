@@ -212,29 +212,26 @@ def _healthy(host: AlignResult, n_expect: float, frac: float) -> bool:
 
 
 def make_robust_align_fn(cfg: Config):
-    """align fn with a host-side recovery retry (the odometry/SLAM drivers).
+    """align fn with a host-side recovery retry (run_slam's).
 
     A constant-velocity warm start occasionally lands EM in a wrong local
     minimum, which keeps far fewer gated correspondences than the clouds'
     overlap supports. If the warm-started solve does not converge or its
     correspondence count drops below `em.retry_overlap_frac` of
     min(|src|, |tgt|), re-solve from identity and keep whichever solution
-    retains more correspondences. The health check is one device-to-host
-    copy (`_to_host`); a retry costs one more solve. The result stays on
-    the device.
+    retains more correspondences. The result is the host copy that
+    carries the health check (`_to_host`): one device-to-host copy per
+    solve, and a retry costs one more solve.
     """
     base = make_align_fn(cfg)
     frac = cfg.em.retry_overlap_frac
 
     def fn(src: Cloud, tgt: Cloud, T0=None, gate=None, max_iters=None) -> AlignResult:
-        res = base(src, tgt, T0, gate=gate, max_iters=max_iters)
-        if frac <= 0.0 or T0 is None:
-            return res
-        host, n_expect = _to_host(res, src, tgt)
-        if _healthy(host, n_expect, frac):
-            return res
-        res2 = base(src, tgt, None, gate=gate, max_iters=max_iters)
-        return res2 if float(res2.n_corr) > float(host.n_corr) else res
+        host, n_expect = _to_host(base(src, tgt, T0, gate=gate, max_iters=max_iters), src, tgt)
+        if frac <= 0.0 or T0 is None or _healthy(host, n_expect, frac):
+            return host
+        host2 = _to_host(base(src, tgt, None, gate=gate, max_iters=max_iters), src, tgt)[0]
+        return host2 if float(host2.n_corr) > float(host.n_corr) else host
 
     return fn
 

@@ -123,11 +123,20 @@ def test_preprocess_bare_covconfig_keeps_layout(rng):
     assert np.isclose(c_t, c_j, rtol=2e-3, atol=2e-3).mean() > 0.995
 
 
-def test_unported_paths_raise():
-    """The kNN covariances are the one preprocessing path still to port.
-    The raw layout, which raised on CUDA until K5, now runs everywhere."""
+def test_unported_paths_raise(rng):
+    """No preprocessing path raises any more: the kNN covariances match
+    the JAX package's at tests/test_covariance.py's oracle configuration
+    (2000 points, k = 20, a bare CovConfig), and the raw layout runs
+    everywhere. Both packages sum f32 products of the same 20 neighbours
+    in other orders, so the clamped covariances agree to 1e-4."""
+    xyz, lab = make_scene(rng, n_points=2000, extent=10.0)
+    lab = lab - 1
+    cj = semicp.preprocess_cloud(semicp.make_cloud(xyz, lab, n_pad=2048),
+                                 JCovConfig(method="knn", k=20))
+    ct = semicp_torch.preprocess_cloud(
+        semicp_torch.make_cloud(xyz, lab, n_pad=2048, device="cpu"), TCovConfig(method="knn", k=20))
+    assert ct.layout == cj.layout == "raw"
+    np.testing.assert_allclose(ct.cov6.numpy(), np.asarray(cj.cov6), rtol=0, atol=1e-4)
     c = semicp_torch.make_cloud(np.zeros((10, 3), np.float32), n_pad=256, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        semicp_torch.preprocess_cloud(c, TCovConfig(method="knn"))
     out = semicp_torch.preprocess_cloud(c, TCovConfig(radius=0.5))
     assert out.layout == "raw" and torch.isfinite(out.cov6).all()

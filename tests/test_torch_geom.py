@@ -107,3 +107,19 @@ def test_sym3_regularize_gicp_match_jax(rng, eps):
     # eigenvalues of the clamped matrix are (1, 1, eps)
     ev = np.linalg.eigvalsh(np.asarray(tsym3.to_matrix(tuple(torch.from_numpy(gt)))))
     np.testing.assert_allclose(ev, np.broadcast_to([eps, 1, 1], ev.shape), atol=1e-4)
+
+
+def test_sym3_add_scale_matvec_match_jax(rng):
+    """Elementwise products and sums in the same order: equal to the bit."""
+    S, U = random_spd(rng, 128), random_spd(rng, 128)
+    v = rng.normal(size=(3, 128)).astype(np.float32)
+    pj, uj = ([jnp.asarray(p) for p in planes_np(M)] for M in (S, U))
+    pt, ut = ([torch.from_numpy(np.ascontiguousarray(p)) for p in planes_np(M)] for M in (S, U))
+    for got, ref in ((tsym3.add(pt, ut), jsym3.add(pj, uj)),
+                     (tsym3.scale(pt, 0.37), jsym3.scale(pj, 0.37)),
+                     (tsym3.matvec(pt, tuple(torch.from_numpy(v))),
+                      jsym3.matvec(pj, tuple(jnp.asarray(v))))):
+        np.testing.assert_array_equal(torch.stack(got).numpy(),
+                                      np.stack([np.asarray(x) for x in ref]))
+    mv = torch.stack(tsym3.matvec(pt, tuple(torch.from_numpy(v)))).numpy()
+    np.testing.assert_allclose(mv, np.einsum("nij,jn->in", S, v), rtol=1e-5, atol=1e-4)

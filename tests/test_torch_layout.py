@@ -85,3 +85,14 @@ def test_tile_candidates_same_sets(rng, gate, ranges):
                                        torch.tensor(gate), **kw_t)
     np.testing.assert_array_equal(cnt_g.numpy(), cnt_t)
     np.testing.assert_array_equal(cand_g.numpy(), cand_t)
+
+
+@pytest.mark.parametrize("cell", [0.5, 2.0])
+def test_morton_order_identical(rng, cell):
+    """The Morton permutation, invalid points last and equal codes in
+    input order (the scene's duplicated block), equal to the JAX one."""
+    cj, ct = scene_clouds(rng, 1900, 2048, 6)
+    perm_j = np.asarray(jm.morton_order(cj.xyz, cj.valid, cell))
+    perm_t = tm.morton_order(ct.xyz, ct.valid, cell).numpy()
+    np.testing.assert_array_equal(perm_t, perm_j)
+    assert ct.valid.numpy()[perm_t].tolist() == [True] * 1900 + [False] * 148

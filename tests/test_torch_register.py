@@ -28,6 +28,7 @@ from semicp.geom.se3 import se3_inverse as j_se3_inverse
 from semicp.geom.se3 import se3_log as j_se3_log
 from semicp.register.gauss_newton import apply_T_planar as j_apply_T_planar
 from semicp.register.gauss_newton import gn_solve as j_gn_solve
+from semicp.oracle import OracleParams, estimate_covariances_np, semantic_icp_np
 from semicp.register.residuals import normal_equations_collapsed as j_normal_eq
 from semicp_torch.config import config_from_dict
 from semicp_torch.convert import align_result_to_numpy, cloud_from_numpy
@@ -345,6 +346,95 @@ def test_semantics_disambiguate_corridor(rng):
     assert terr[True] > 2 * terr[False], terr
 
 
+def prep_cov(xyz, lab, cfg):
+    """A CPU cloud preprocessed with the bare CovConfig (raw layout), as
+    tests/test_register.py's `prep` does."""
+    return semicp_torch.preprocess_cloud(
+        semicp_torch.make_cloud(xyz, lab, n_pad=cfg.cloud.n_pad, device="cpu"), cfg.cov)
+
+
+def test_align_parity_with_oracle_radius(pair):
+    """tests/test_register.py's like-for-like radius parity with the numpy
+    oracle, on the port: the same fixed radius on both sides, and the
+    same bounds (5 mm, 2 mrad)."""
+    src, slab, tgt, tlab, T_gt = pair
+    radius = 0.6
+    cfg = semicp_torch.Config().override({**OVER, "cov.radius": radius})
+    res = semicp_torch.align(prep_cov(src, slab, cfg), prep_cov(tgt, tlab, cfg), cfg)
+    p = OracleParams(cov_method="radius", cov_radius=radius)
+    tgt_cov = estimate_covariances_np(tgt.astype(np.float64), tlab, p)
+    assert np.abs(tgt_cov - np.eye(3)).max() > 0.3    # not the all-identity oracle
+    T_o, info = semantic_icp_np(src, slab, tgt, tlab, p)
+    assert info["converged"] and bool(res.converged)
+    terr, rerr = pose_errors(res.T.numpy(), T_o)
+    assert terr < 5e-3 and rerr < 2e-3, (terr, rerr)
+
+
+def test_align_parity_with_oracle_knn(pair):
+    """The reference-semantics anchor: kNN covariances (k = 20) on the
+    port's side and the oracle's, within 5 mm and 2 mrad."""
+    src, slab, tgt, tlab, T_gt = pair
+    cfg = semicp_torch.Config().override({**OVER, "cov.method": "knn"})
+    res = semicp_torch.align(prep_cov(src, slab, cfg), prep_cov(tgt, tlab, cfg), cfg)
+    T_o, info = semantic_icp_np(src, slab, tgt, tlab,
+                                OracleParams(cov_method="knn", cov_k=cfg.cov.k))
+    assert info["converged"] and bool(res.converged)
+    terr, rerr = pose_errors(res.T.numpy(), T_o)
+    assert terr < 5e-3 and rerr < 2e-3, (terr, rerr)
+
+
+def test_align_from_larger_offset(rng):
+    """tests/test_register.py's larger offset (1 m, 0.15 rad), on the port:
+    within 5 cm and 10 mrad of the truth."""
+    xyz, lab = t_make_scene(rng, n_points=1500)
+    lab = lab - 1
+    delta = np.array([1.0, 0.5, 0.1, 0.05, 0.05, 0.15])
+    src, slab, T_gt = t_make_pair(rng, xyz, lab, delta, noise=0.02, dropout=0.1, n_classes=6)
+    cfg = semicp_torch.Config().override({**OVER, "em.max_iters": 40})
+    res = semicp_torch.align(prep_cov(src, slab, cfg), prep_cov(xyz, lab, cfg), cfg)
+    terr, rerr = pose_errors(res.T.numpy(), T_gt)
+    assert terr < 0.05 and rerr < 0.01, (terr, rerr)
+
+
+@pytest.fixture
+def two_threads():
+    """Two intra-op threads: this test's clouds are small, and the suite's
+    other workers keep their cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.usefixtures("two_threads")
+def test_semantic_robust_to_label_corruption(rng):
+    """The other half of the paper's claim, as tests/test_register.py pins
+    it: with 35% of the source labels flipped, semantic EM-ICP still
+    recovers the corridor's x offset to 0.2 m and beats uniform weights
+    by 2x, on that test's 2400-point corridor."""
+    tgt, tlab = corridor_scene(rng, 1200)
+    delta = np.array([0.6, 0.0, 0.0, 0.0, 0.0, 0.0], np.float32)
+    src, slab, T_gt = t_make_pair(rng, tgt, tlab, delta, noise=0.01, dropout=0.2, n_classes=6,
+                                  label_flip=0.35)
+    assert slab.min() >= 0 and slab.max() < 6
+    over = {"cloud.num_classes": 6, "cloud.n_pad": 4096, "em.alpha": 0.9, "em.max_iters": 50}
+    terr = {}
+    for uniform in (False, True):
+        cfg = semicp_torch.Config().override({**over, "em.uniform_semantics": uniform})
+        res = semicp_torch.align(prep_cov(src, slab, cfg), prep_cov(tgt, tlab, cfg), cfg)
+        terr[uniform] = pose_errors(res.T.numpy(), T_gt)[0]
+    assert terr[False] < 0.2, terr
+    assert terr[True] > 2 * terr[False], terr
+
+
+def test_identity_pair_stays_identity(rng):
+    xyz, lab = t_make_scene(rng, n_points=800)
+    cfg = semicp_torch.Config().override({**OVER, "cloud.n_pad": 1024})
+    c = prep_cov(xyz, lab - 1, cfg)
+    res = semicp_torch.align(c, c, cfg)
+    np.testing.assert_allclose(res.T.numpy(), np.eye(4), atol=5e-4)
+
+
 def test_engine_dispatch_rules():
     cfg = semicp_torch.Config()
     # on a CPU "auto" is the plain path; a forced engine is kept (its
@@ -400,7 +490,8 @@ def test_import_pulls_in_neither_jax_nor_semicp():
     code = ("import sys, semicp_torch, semicp_torch.convert, semicp_torch.data, "
             "semicp_torch.kernels, semicp_torch.cli.run_odometry, semicp_torch.cli.run_pair, "
             "semicp_torch.register.ndt, semicp_torch.eval, semicp_torch.utils, "
-            "semicp_torch.slam.pipeline, semicp_torch.data.native; "
+            "semicp_torch.slam.pipeline, semicp_torch.data.native, semicp_torch.cli.run_slam, "
+            "semicp_torch.slam, semicp_torch.dist, semicp_torch.utils.checkpoint; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'semicp')); "
             "print(bad); sys.exit(1 if bad else 0)")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
