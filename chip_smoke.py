@@ -63,10 +63,30 @@ Phases (any failure raises and exits non-zero):
    card against the CPU, with the closest decision margins; (d) a crash
    with checkpoints and a resume; (e) pose-graph optimisation at 1024
    poses and 4096 edges; (f) kNN covariances (cov.method=knn) on the
-   bench pair.
+   bench pair;
+11. the last two configurations, over the process group's mesh (an NCCL
+   group of one on one card): (a) plain run_batch, 4 sequences x 12
+   frames of 120000-point scans at n_pad 131072 preprocessed in raw
+   layout (K5, then the align's own sort; K2, K3, G1), with aligns/s,
+   ATE per sequence, launches and host syncs per batch step, and each
+   sequence's poses against a serial make_align_fn chain on the same
+   scans (equal); the time of the align's sort of a raw pair; (b)
+   run_batch --slam on 2 sequences of phase 10 (a)'s loop against
+   independent run_slam runs (keyframes and loop edges equal, ATE within
+   2e-2 m); (c) run_slam --dist on that loop (NCCL, ATE, the map BA's
+   landmarks, observations and its matching and solve times, ms per
+   frame, launches); (d) its last scan-to-map pair through the
+   distributed align against make_align_fn (T, iterations, one host sync
+   per EM pass, device kernels); (e) G1's distributed mode (reduce,
+   all-reduce, update a GN pass) against em_tail_dist_plain and G1 on the
+   bench planes and at N = 4097 (T within 1e-5, bit-equal calls, moved
+   and rc bit-equal), timed, with its bound and device kernels a GN pass;
+   (f) the Schur BA at 32 keyframes and 8192 landmarks, the card against
+   the CPU, ms a BA iteration.
 
-It prints one JSON line of the SLAM phase's results, one of the kernels'
-results, the card's name and power limit, and last the line
+It prints one JSON line of the SLAM phase's results, one of phase 11's,
+one of the kernels' results, the card's name and power limit, and last
+the line
 {"ok": true, "device": {...}}.
 Imports torch, numpy and semicp_torch only.
 """
@@ -98,7 +118,7 @@ from semicp_torch.cloud.moments import (
     neighborhood_moments_sparse,
 )
 from semicp_torch.config import parse_overrides
-from semicp_torch.corr.layout import CHUNK
+from semicp_torch.corr.layout import CHUNK, sort_cloud_cm
 from semicp_torch.corr.nn_dense import class_nn_attrs_dense, sort_cloud_by_class
 from semicp_torch.corr.nn_sparse import (
     class_nn_attrs_plain,
@@ -106,7 +126,7 @@ from semicp_torch.corr.nn_sparse import (
     nn_walked_chunks,
     prepare_sparse,
 )
-from semicp_torch.cli import run_odometry, run_slam
+from semicp_torch.cli import run_batch, run_odometry, run_slam
 from semicp_torch.data import (
     SEMANTICKITTI_REMAP,
     load_kitti_poses,
@@ -126,10 +146,16 @@ from semicp_torch.register.em_icp import (
     use_fused_estep,
 )
 from semicp_torch.geom.se3 import se3_exp, se3_inverse, se3_log
+from semicp_torch.dist import align_dist
+from semicp_torch.dist.mesh import make_mesh
 from semicp_torch.register.gauss_newton import (
     S_PASSES,
+    dist_plan,
     em_tail,
+    em_tail_dist,
+    em_tail_dist_plain,
     em_tail_plain,
+    gn_solve_dist,
     launch_plan,
     move_source,
     move_source_plain,
@@ -138,7 +164,7 @@ from semicp_torch.register.gauss_newton import (
 from semicp_torch.register.ndt import align_ndt
 from semicp_torch.register.estep import estep_reduce, estep_reduce_plain
 from semicp_torch.register.fused import estep_fused_plain, estep_sparse_fused
-from semicp_torch.slam import pose_graph
+from semicp_torch.slam import pose_graph, schur
 from semicp_torch.slam.keyframes import KeyframeStore
 from semicp_torch.slam.loop_closure import LoopVerifier
 
@@ -179,6 +205,16 @@ SLAM_SMALL = ["--synthetic", str(SLAM_SMALL_FRAMES), "--n-points", str(SMALL_POI
 # at the size of phase 10 (a)'s graph
 PGO_POSES, PGO_EDGES, PGO_ITERS = 1024, 4096, 20
 PGO_SMALL_POSES, PGO_SMALL_EDGES = 32, 48
+# phase 11: the last two configurations. (a) plain run_batch: 4 sequences
+# of 12 frames at the bench's width (raw layout: K5, then the align's own
+# sort); (b) run_batch --slam on 2 sequences of phase 10 (a)'s loop; (c)
+# run_slam --dist on that loop; (f) the Schur BA at a 32-keyframe map
+# (slam.ba_max_landmarks, slam.ba_obs_per_kf), each landmark seen from 8
+# keyframes
+BATCH_SEQS, BATCH_FRAMES, BATCH_SLAM_SEQS = 4, 12, 2
+BATCH_RUN = ["--synthetic", str(BATCH_FRAMES), "--sequences", str(BATCH_SEQS), "--n-points",
+             str(N_POINTS), f"--cloud.n_pad={N_PAD}", f"--cloud.num_classes={N_CLASSES}"]
+BA_POSES, BA_LANDMARKS, BA_VIEWS, BA_ITERS = 32, 8192, 8, 6
 # the E-step's tolerances, (rtol, atol) per output (tests/test_pallas.py)
 ESTEP_TOLS = {"a6": (3e-3, 2e-3), "b3": (3e-3, 5e-3), "c": (3e-3, 5e-3), "wsum": (0.0, 1e-5)}
 # the H100 SXM's published peaks (NVIDIA data sheet): f32 outside the tensor
@@ -205,7 +241,9 @@ DEVICE_KERNELS = {
     "nn_sparse": ("nn_items_kernel", "nn_walk_kernel", "nn_gather_kernel"),
     "estep_reduce": ("estep_reduce_kernel",), "nn_dense": ("nn_dense_kernel",),
     "estep_fused": ("nn_items_kernel", "nn_walk_kernel", "estep_keys_kernel"),
-    "gn_solve": ("gn_em_kernel",)}
+    "gn_solve": ("gn_em_kernel",), "gn_dist": ("gn_reduce_kernel", "gn_update_kernel")}
+# G1's distributed mode reads the 13 planes and wsum once (56 B a point)
+BYTES_GN_DIST_POINT = 56
 # the device kernels of one steady bench scan when the M-step still ran as
 # torch ops, before G1, and when G1 still took a launch a GN pass and the
 # EM pass's tail ran as torch ops (PERF.md)
@@ -1649,6 +1687,395 @@ def phase10(dev, card, results, bench):
     return summary, launches, small_launches
 
 
+def capture(module, name, record):
+    """A context that wraps module.name to append each call's result to
+    record (a list) and restores it on exit."""
+
+    @contextlib.contextmanager
+    def ctx():
+        orig = getattr(module, name)
+
+        def wrapped(*a, **k):
+            out = orig(*a, **k)
+            record.append(out)
+            return out
+
+        setattr(module, name, wrapped)
+        try:
+            yield record
+        finally:
+            setattr(module, name, orig)
+
+    return ctx()
+
+
+def batch_main(argv, dev):
+    """run_batch.main with argv on dev; its JSON line kept off stdout."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return run_batch.main(argv + ["--device", str(dev)])
+
+
+def phase11_batch(root: Path, card, dev):
+    """(a) plain run_batch at full width, counted, with its host syncs;
+    each sequence's poses against a serial make_align_fn chain on the same
+    scans; the align's own sort of a raw-layout pair."""
+    argv = BATCH_RUN + ["--jsonl", str(root / "batch.jsonl")]
+    cfg = semicp_torch.Config().override(parse_overrides(argv))
+    kept = []
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with capture(run_batch, "run_batch", kept):
+        out, sites = host_syncs(lambda: batch_main(argv, dev))
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    poses = kept[0][1]
+    recs = [json.loads(line) for line in (root / "batch.jsonl").read_text().splitlines()]
+    em_passes = round(sum(r["mean_iters"] for r in recs) * BATCH_SEQS)
+    flag, cloud_py = sync_line(em_icp, "the one sync per EM pass"), os.path.relpath(
+        semicp_torch.cloud.cloud.__file__)
+    kinds = collections.Counter()
+    for site, n in sites.items():
+        kinds["em_flag" if site == flag else "upload" if site.startswith(cloud_py + ":")
+              else "other"] += n
+    steps = BATCH_FRAMES - 1
+    per_frame = {k: v / BATCH_FRAMES for k, v in launches.items()}
+    step_ms = frame_ms(recs)    # steady: the first aligned step (NCCL's set-up) excluded
+    print(f"phase 11 (a): run_batch, {BATCH_SEQS} sequences x {BATCH_FRAMES} frames of "
+          f"{N_POINTS} points at n_pad {N_PAD}: {out['aligns_per_s']} aligns/s on {card} "
+          f"({out['aligns_total']} aligns; steady {step_ms:.2f} ms a batch step, "
+          f"{1e3 * BATCH_SEQS / step_ms:.2f} aligns/s, JSONL clock), ATE per sequence "
+          f"{out['ate_rmse_m']} m (tol 0.2); PhaseTimer means (ms) "
+          f"{ {k: round(v['mean_ms'], 3) for k, v in out['timing'].items()} }")
+    syncs = {k: v / BATCH_FRAMES for k, v in kinds.items()}
+    print(f"phase 11 (a): launches per batch step of {BATCH_SEQS} scans {per_frame}; EM passes "
+          f"{em_passes}; host syncs by kind {dict(kinds)} ({syncs} per batch step; drains and "
+          f"the result copies are 'other'); sites {dict(sites)}")
+    assert out["sequences"] == BATCH_SEQS and out["aligns_total"] == BATCH_SEQS * steps
+    assert all(a < 0.2 for a in out["ate_rmse_m"]), out["ate_rmse_m"]
+    assert kinds["em_flag"] == em_passes, (kinds, em_passes)
+    missing = [k for k in ("moments_dense", "nn_sparse", "estep_reduce", "gn_solve")
+               if launches[k] == 0]
+    assert not missing, f"kernels not launched on run_batch's path: {missing}"
+    stray = [k for k in ("moments_sparse", "nn_dense", "estep_fused", "gn_dist")
+             if launches[k] != 0]
+    assert not stray, f"kernels off run_batch's path launched: {stray}"
+
+    # the same scans through a serial make_align_fn chain, warm-started the same way
+    seqs = run_batch.synthetic_sequences(BATCH_SEQS, BATCH_FRAMES, N_POINTS)
+    align = semicp_torch.make_align_fn(cfg)
+    worst = 0.0
+    for s in range(BATCH_SEQS):
+        chain, prev, T0 = [np.eye(4)], None, torch.eye(4, device=dev)
+        for pts, lab in seqs[s][0]:
+            c = semicp_torch.preprocess_cloud(
+                semicp_torch.make_cloud(pts, lab, n_pad=N_PAD, device=dev), cfg.cov)
+            if prev is not None:
+                T0 = align(c, prev, T0).T
+                chain.append(chain[-1] @ T0.cpu().numpy().astype(np.float64))
+            prev = c
+        worst = max(worst, float(np.max(np.abs(np.stack(chain) - np.stack(poses[s])))))
+    # the align's sort of a raw-layout pair (source and target)
+    pts, lab = seqs[0][0][1]
+    raw = semicp_torch.preprocess_cloud(
+        semicp_torch.make_cloud(pts, lab, n_pad=N_PAD, device=dev), cfg.cov)
+    sort_ms = 2 * cuda_ms(lambda: sort_cloud_cm(raw, N_CLASSES, cfg.corr.cell), 20)
+    print(f"phase 11 (a): poses against a serial make_align_fn chain on the same scans: max "
+          f"|diff| {worst:.3e} (must be 0); the align's class-major sort of a raw-layout pair "
+          f"{sort_ms:.4f} ms (source and target)")
+    assert worst == 0.0, worst
+    return {"aligns_per_s": out["aligns_per_s"], "steady_ms_per_step": step_ms,
+            "steady_aligns_per_s": 1e3 * BATCH_SEQS / step_ms, "ate_m": out["ate_rmse_m"],
+            "phase_mean_ms": {k: v["mean_ms"] for k, v in out["timing"].items()},
+            "launches_per_step": per_frame, "em_passes": em_passes,
+            "syncs_per_step": syncs,
+            "resort_ms_per_pair": sort_ms}, launches
+
+
+def phase11_batch_slam(root: Path, loop_out, dev):
+    """(b) run_batch --slam on 2 sequences of phase 10 (a)'s loop, against
+    independent run_slam runs of the same seeds (seed 0 is phase 10 (a)'s
+    loop run)."""
+    argv = SLAM_LOOP + ["--slam", "--sequences", str(BATCH_SLAM_SEQS)]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = batch_main(argv, dev)
+    torch.cuda.synchronize()
+    # the run's wall clock less the host's scene generation
+    wall = time.perf_counter() - t0 - out["timing"]["generate"]["total_s"]
+    launches = dict(kernels.LAUNCHES)
+    refs = [loop_out] + [slam(root, f"seed{s}", SLAM_LOOP + ["--seed", str(s)],
+                              device=str(dev))[0] for s in range(1, BATCH_SLAM_SEQS)]
+    print(f"phase 11 (b): run_batch --slam, {BATCH_SLAM_SEQS} sequences x {SLAM_FRAMES} frames: "
+          f"keyframes {out['keyframes']}, loop edges {out['loop_edges']}, ATE {out['ate_rmse_m']} "
+          f"m; independent run_slam: keyframes {[r['keyframes'] for r in refs]}, loop edges "
+          f"{[r['loop_edges'] for r in refs]}, ATE {[round(r['ate_rmse_m'], 4) for r in refs]} "
+          f"m (tol 2e-2); {1e3 * wall / SLAM_FRAMES:.2f} ms a batch step, generation apart "
+          f"({1e3 * wall / (SLAM_FRAMES * BATCH_SLAM_SEQS):.2f} ms a sequence frame); PhaseTimer "
+          f"means (ms) { {k: round(v['mean_ms'], 3) for k, v in out['timing'].items()} }; "
+          f"launches {launches}")
+    for s, r in enumerate(refs):
+        assert out["keyframes"][s] == r["keyframes"], (s, out["keyframes"], r["keyframes"])
+        assert out["loop_edges"][s] == r["loop_edges"], (s, out["loop_edges"], r["loop_edges"])
+        assert abs(out["ate_rmse_m"][s] - r["ate_rmse_m"]) < 2e-2, (s, out, r)
+    missing = [k for k in ("moments_sparse", "nn_sparse", "estep_reduce", "gn_solve")
+               if launches[k] == 0]
+    assert not missing, f"kernels not launched on run_batch --slam's path: {missing}"
+    return {"keyframes": out["keyframes"], "loop_edges": out["loop_edges"],
+            "ate_m": out["ate_rmse_m"], "ms_per_step": 1e3 * wall / SLAM_FRAMES,
+            "phase_mean_ms": {k: v["mean_ms"] for k, v in out["timing"].items()},
+            "launches_per_step": {k: v / SLAM_FRAMES for k, v in launches.items()}}, launches
+
+
+def phase11_dist(root: Path, dev):
+    """(c) run_slam --dist on phase 10 (a)'s loop at world size 1 under
+    NCCL; (d) its last scan-to-map pair through the distributed align
+    against make_align_fn, with the align's host syncs and device kernels."""
+    import torch.distributed as tdist
+
+    calls = []
+    orig = align_dist.make_dist_align_fn
+
+    def recording(mesh, cfg, engine=None):
+        align = orig(mesh, cfg, engine)
+
+        def fn(src, tgt, T0=None):
+            calls.append((src, tgt, T0))
+            return align(src, tgt, T0)
+
+        return fn
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    align_dist.make_dist_align_fn = recording
+    try:
+        out, P, recs = slam(root, "dist", SLAM_LOOP + ["--dist"], device=str(dev))
+    finally:
+        align_dist.make_dist_align_fn = orig
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    backend, world = tdist.get_backend(), tdist.get_world_size()
+    ba = out["map_ba"]
+    iters = [r["iters"] for r in recs]
+    print(f"phase 11 (c): run_slam --dist, {SLAM_FRAMES} frames: process group {backend}, world "
+          f"{world} (the ring's rotation has nothing to send); {out['keyframes']} keyframes, "
+          f"{out['loop_edges']} loop edges, ATE {out['ate_rmse_m']:.4e} m (tol 0.5); map BA "
+          f"{ba} (matching {ba.get('match_s')} s, solve {ba.get('solve_s')} s); "
+          f"{frame_ms(recs):.2f} ms per frame (JSONL clock); PhaseTimer means (ms) "
+          f"{ {k: round(v['mean_ms'], 3) for k, v in out['timing'].items()} }; EM iterations "
+          f"per frame {np.mean(iters):.2f}; launches {launches}")
+    assert backend == "nccl" and world == 1, (backend, world)
+    assert out["frames"] == SLAM_FRAMES and np.isfinite(P).all() and out["ate_rmse_m"] < 0.5
+    assert ba["observations"] >= 6 * out["keyframes"], ba
+    missing = [k for k in ("moments_sparse", "nn_sparse", "estep_reduce", "gn_solve", "gn_dist")
+               if launches[k] == 0]
+    assert not missing, f"kernels not launched on run_slam --dist's path: {missing}"
+    stray = [k for k in ("nn_dense", "moments_dense", "estep_fused") if launches[k] != 0]
+    assert not stray, f"kernels off run_slam --dist's path launched: {stray}"
+    summary = {"c": {"backend": backend, "world": world, "ate_m": out["ate_rmse_m"],
+                     "keyframes": out["keyframes"], "loop_edges": out["loop_edges"],
+                     "map_ba": ba, "ms_per_frame": frame_ms(recs),
+                     "phase_mean_ms": {k: v["mean_ms"] for k, v in out["timing"].items()},
+                     "em_iters_per_frame": float(np.mean(iters)),
+                     "launches_per_frame": {k: v / SLAM_FRAMES for k, v in launches.items()}}}
+
+    # (d) the last scan-to-map pair: the distributed align against the
+    # single-device one, both from the frame's warm start
+    cfg = semicp_torch.Config().override(parse_overrides(SLAM_LOOP))
+    src, tgt, T0 = calls[-1]
+    mesh = make_mesh(dev)
+    dist_align = orig(mesh, cfg)
+    rd = dist_align(src, tgt, T0)
+    rs = semicp_torch.make_align_fn(cfg)(src, tgt, T0)
+    dT = float(torch.max(torch.abs(rd.T - rs.T)))
+    rd2, sites = host_syncs(lambda: dist_align(src, tgt, T0))
+    n_sync, it = sum(sites.values()), int(rd2.iterations)
+    _, n_kernels = device_kernels(lambda: dist_align(src, tgt, T0))
+    ms = host_ms(lambda: dist_align(src, tgt, T0))[1]
+    ms_single = host_ms(lambda: semicp_torch.make_align_fn(cfg)(src, tgt, T0))[1]
+    print(f"phase 11 (d): the last scan-to-map pair ({src.n_pad} points against a "
+          f"{tgt.n_pad}-point submap): distributed T against make_align_fn's max |diff| {dT:.3e} "
+          f"(tol 1e-4), iterations {int(rd.iterations)} / {int(rs.iterations)}; host syncs of a "
+          f"distributed align {n_sync} over {it} EM passes ({dict(sites)}); {n_kernels} device "
+          f"kernels; {ms:.2f} ms against {ms_single:.2f} ms on one device")
+    assert dT <= 1e-4 and int(rd.iterations) == int(rs.iterations), (dT, rd, rs)
+    assert n_sync == it, "a host sync crept into the distributed EM pass beyond its flag"
+    summary["d"] = {"max_T_diff": dT, "iterations": it, "host_syncs_per_em_pass": n_sync / it,
+                    "device_kernels": n_kernels, "ms": ms, "ms_single": ms_single}
+    return summary, launches, mesh
+
+
+def compare_dist_tail(tag, planes, gcfg, mesh, timed_reps=0):
+    """G1's distributed entries (em_tail_dist at world size 1: the GN passes
+    of reduce, all-reduce and update, then G1 with no pass) against
+    em_tail_dist_plain and against G1 proper (em_tail), from T_in = I:
+    T within 1e-5 of both, the same GN passes as G1, H, cost and step with
+    compare_tail's tolerances, moved and rc equal to the bit to
+    move_source_plain at its T, two calls equal to the bit. Returns
+    (T max_abs_err, passes, wrapper ms, alone ms, plain ms, flops, bytes,
+    device kernel names of one M-step); the times None unless timed_reps."""
+    z, cov6, a6, b3, c, wsum = planes
+    n, dev = z.shape[1], z.device
+    T0 = torch.eye(4, device=dev)
+    buf = tail_outputs(n, dev)[0]
+
+    def g1d():
+        return em_tail_dist(T0, z, cov6, a6, b3, c, wsum, gcfg, mesh, buf)
+
+    out_k = [t.clone() for t in g1d()]
+    passes = int(kernels.WALKED["gn_dist"][S_PASSES])
+    bit = all(same_bits(a, b) for a, b in zip(out_k, g1d()))
+    out_p = em_tail_dist_plain(T0, z, cov6, a6, b3, c, wsum, gcfg, mesh)
+    out_g = [t.clone() for t in em_tail(T0, z, cov6, a6, b3, c, wsum, gcfg)]
+    passes_g = int(kernels.WALKED["gn_solve"][S_PASSES])
+    moved_p, rc_p = move_source_plain(out_k[0], z, cov6)
+    bit_move = same_bits(out_k[6], moved_p) and same_bits(out_k[7], rc_p)
+    (Tk, ck, sk, Hk, ek, nk), (Tp, cp, sp, Hp, ep, np_), (Tg, *_rest) = (
+        [t.double().cpu() for t in o[:6]] for o in (out_k, out_p, out_g))
+    dT, dTg = float(torch.max(torch.abs(Tk - Tp))), float(torch.max(torch.abs(Tk - Tg)))
+    h_ratio = float(torch.max(torch.abs(Hk - Hp) / (1e-4 * torch.abs(Hp).max()
+                                                    + 1e-4 * torch.abs(Hp))))
+    c_err, s_err = float(torch.abs(ck - cp)), float(torch.abs(sk - sp))
+    e_err, n_err = float(torch.abs(ek - ep)), float(torch.abs(nk - np_))
+    ok = (dT <= 1e-5 and dTg <= 1e-5 and h_ratio <= 1.0 and c_err <= 1e-4 * float(torch.abs(cp))
+          and s_err <= 1e-3 * float(torch.abs(sp)) + 1e-6 and e_err <= 1e-4
+          and n_err <= 1e-5 * float(torch.abs(np_)))
+    blocks, share = dist_plan(dev, n)[:2]
+    print(f"{tag}: N {n}, reduce plan (blocks, share) ({blocks}, {share}), {passes} GN passes "
+          f"(G1 {passes_g}); T max |diff| {dT:.3e} against em_tail_dist_plain, {dTg:.3e} "
+          f"against G1 (tol 1e-5); H worst ratio {h_ratio:.3f} of tol; cost {float(ck):.6e} vs "
+          f"{float(cp):.6e}; step {float(sk):.3e} vs {float(sp):.3e}; em_step {float(ek):.6e} "
+          f"vs {float(ep):.6e}; n_corr {float(nk):.1f} vs {float(np_):.1f}; moved and rc "
+          f"bit-equal to plain at its T: {bit_move}; two calls bit-equal: {bit}")
+    assert ok and passes == passes_g, f"{tag}: G1's distributed mode disagrees"
+    assert bit_move and bit, f"{tag}: moved/rc differ from plain, or two calls differ"
+    flops = FLOP_GN_POINT * n * passes
+    nbytes = BYTES_GN_DIST_POINT * n + 4 * (16 + 64 + 32)
+
+    def solve():
+        return gn_solve_dist(T0, z, a6, b3, c, wsum, gcfg, mesh, buf)
+
+    _, ev = device_events(solve)
+    names = collections.Counter(next((k for k in DEVICE_KERNELS["gn_dist"] if k in e.name),
+                                     e.name[:80]) for e in ev)
+    if not timed_reps:
+        return dT, passes, None, None, None, flops, nbytes, names
+    ms = cuda_ms(solve, timed_reps)
+    steps = max(gcfg.max_iters, 1)
+    k_ms = kernel_ms("gn_dist", solve, timed_reps,
+                     per_call={"gn_reduce_kernel": steps, "gn_update_kernel": steps})
+    plain_ms = cuda_ms(lambda: em_tail_dist_plain(T0, z, cov6, a6, b3, c, wsum, gcfg, mesh), 5)
+    print(f"{tag}: gn_solve_dist wrapper {ms:.4f} ms, alone {k_ms:.4f} ms, em_tail_dist_plain "
+          f"{plain_ms:.3f} ms; device kernels of one M-step ({steps} GN passes, {passes} run) "
+          f"{dict(names)}")
+    return dT, passes, ms, k_ms, plain_ms, flops, nbytes, names
+
+
+def phase11_g1(src, tgt, cfg, mesh, results):
+    """(e) G1's distributed entries on the bench pair's first E-step planes
+    (timed; the JSON entry) and on random planes at N = 4097."""
+    dT, passes, ms, k_ms, plain_ms, flops, nbytes, names = compare_dist_tail(
+        "phase 11 (e) G1 distributed (bench shape)", estep_planes(src, tgt, cfg), cfg.gn, mesh,
+        timed_reps=20)
+    steps = max(cfg.gn.max_iters, 1)
+    ours = sum(names[k] for k in DEVICE_KERNELS["gn_dist"])
+    print(f"phase 11 (e): device kernels a distributed GN pass: {ours / steps} of G1's own "
+          f"(2 expected; the profiler may drop events, never add them), "
+          f"{(sum(names.values()) - ours) / steps} others (NCCL's)")
+    assert steps <= ours <= 2 * steps, names
+    dT2 = compare_dist_tail("phase 11 (e) G1 distributed (random SPD planes)",
+                            random_planes(4097, src.device), cfg.gn, mesh)[0]
+    entry = kernel_entry("gn_dist", "semicp_torch/csrc/gn_solve.cu",
+                         "semicp/register/gauss_newton.py:64", max(dT, dT2), ms, k_ms, plain_ms,
+                         flops, nbytes, None)
+    entry["device_kernels_per_gn_pass"] = {k: v / steps for k, v in names.items()}
+    results.append(entry)
+    return {"passes": passes, "ms": ms, "kernel_ms": k_ms, "plain_ms": plain_ms,
+            "bound_ms": entry["bound_ms"], "device_kernels_per_gn_pass":
+                entry["device_kernels_per_gn_pass"]}
+
+
+def ba_problem(m, n_lm, views, seed=0):
+    """A BA of m keyframes along a path and n_lm landmarks, landmark l seen
+    from the `views` keyframes l, l + 1, ... (mod m; so every keyframe
+    sees n_lm * views / m, and the views chain all keyframes to keyframe
+    0), measured with 1 cm noise; the start perturbed.
+    Returns (ground-truth poses, initial poses, initial landmarks, obs_pose,
+    obs_lm, obs_z, obs_w) as numpy."""
+    rng = np.random.default_rng(seed)
+
+    def exp(v):
+        return se3_exp(torch.from_numpy(np.asarray(v, np.float32))).numpy().astype(np.float64)
+
+    gt = [np.eye(4)]
+    for _ in range(1, m):
+        gt.append(gt[-1] @ exp([1.0, 0.1, 0.0, 0.01, 0.0, 0.05]))
+    gt = np.stack(gt)
+    lms = rng.uniform([-5.0, -10.0, -2.0], [m + 5.0, 25.0, 6.0], size=(n_lm, 3))
+    lm_ids = np.repeat(np.arange(n_lm), views)
+    pose_ids = (lm_ids + np.tile(np.arange(views), n_lm)) % m
+    inv = np.linalg.inv(gt)[pose_ids]
+    z = np.einsum("oab,ob->oa", inv[:, :3, :3], lms[lm_ids]) + inv[:, :3, 3]
+    z += rng.normal(size=z.shape) * 0.01
+    init = gt.copy()
+    for i in range(1, m):
+        init[i] = init[i] @ exp(rng.normal(size=6) * [0.1, 0.1, 0.05, 0.01, 0.01, 0.02])
+    l0 = lms + rng.normal(size=lms.shape) * 0.1
+    return (gt, init.astype(np.float32), l0.astype(np.float32), pose_ids.astype(np.int64),
+            lm_ids.astype(np.int64), z.astype(np.float32), np.ones(len(z), np.float32))
+
+
+def phase11_schur(dev, mesh):
+    """(f) the Schur BA at BA_POSES keyframes and BA_LANDMARKS landmarks on
+    the card against ba_solve_single on the CPU; ms a BA iteration, alone
+    and over the mesh (an all-reduce of S, g_s and the costs)."""
+    gt, p0, l0, op, ol, oz, ow = ba_problem(BA_POSES, BA_LANDMARKS, BA_VIEWS)
+    per_kf = np.bincount(op, minlength=BA_POSES)
+    host = [torch.from_numpy(a) for a in (p0, l0, op, ol, oz, ow)]
+    card = [a.to(dev) for a in host]
+    (pc, lc), ms = host_ms(lambda: schur.ba_solve_single(*card, iters=BA_ITERS))
+    ph, lh = schur.ba_solve_single(*host, iters=BA_ITERS)
+    dp = float(torch.max(torch.abs(pc.cpu() - ph)))
+    dl = float(torch.max(torch.abs(lc.cpu() - lh)))
+    err0 = np.linalg.norm(p0[:, :3, 3] - gt[:, :3, 3], axis=1).max()
+    err1 = np.linalg.norm(pc.cpu().numpy()[:, :3, 3] - gt[:, :3, 3], axis=1).max()
+    lam = torch.full((), 1e-4, device=dev)
+    it_ms = cuda_ms(lambda: schur.ba_step_local(*card[:2], *card[2:], BA_POSES, None, lam), 10)
+    it_mesh = cuda_ms(lambda: schur.ba_step_local(*card[:2], *card[2:], BA_POSES, mesh, lam), 10)
+    print(f"phase 11 (f): Schur BA, {BA_POSES} keyframes, {BA_LANDMARKS} landmarks, "
+          f"{len(op)} observations ({per_kf.min()}-{per_kf.max()} a keyframe), {BA_ITERS} "
+          f"iterations: card against CPU poses max |diff| {dp:.3e} (tol 1e-4), landmarks "
+          f"{dl:.3e}; worst pose error {err0:.3e} -> {err1:.3e} m (tol 0.01); {ms:.2f} ms a solve "
+          f"(upload and copy back excluded), {it_ms:.3f} ms a BA iteration, {it_mesh:.3f} ms "
+          f"over the mesh (world {mesh.world})")
+    assert dp <= 1e-4 and err1 < 0.01, (dp, err0, err1)
+    return {"poses": BA_POSES, "landmarks": BA_LANDMARKS, "observations": int(len(op)),
+            "max_pose_diff_card_cpu": dp, "ms_solve": ms, "ms_per_iter": it_ms,
+            "ms_per_iter_mesh": it_mesh, "pose_err_m": [float(err0), float(err1)]}
+
+
+def phase11(dev, card, results, loop_out, bench):
+    """The last two configurations, (a)-(f). Returns (the summary, the
+    launches of (a), (b) and (c))."""
+    src, tgt, cfg = bench
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        summary = {"a": None}
+        summary["a"], batch_launches = phase11_batch(root, card, dev)
+        print(f"phase 11 (a): done in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        summary["b"], bslam_launches = phase11_batch_slam(root, loop_out, dev)
+        print(f"phase 11 (b): done in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        cd, dist_launches, mesh = phase11_dist(root, dev)
+        summary.update(cd)
+        print(f"phase 11 (c), (d): done in {time.perf_counter() - t0:.1f} s")
+    summary["e"] = phase11_g1(src, tgt, cfg, mesh, results)
+    summary["f"] = phase11_schur(dev, mesh)
+    return summary, batch_launches, bslam_launches, dist_launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
@@ -1786,20 +2213,35 @@ def main() -> None:
     slam_summary, slam_launches, slam_small = phase10(
         dev, card, results, (src_pts, src_lab, tgt_pts, tgt_lab, T_gt))
     print(f"phase 10: done in {time.perf_counter() - t0:.1f} s")
-    # each kernel reports the launches of this slice's path that runs it:
-    # keyframe SLAM at full width for K1-K3 and G1, its small sequence on
-    # the card for K4, phase 6 for K5, phase 7 for K6
+    t0 = time.perf_counter()
+    sa = slam_summary["a"]
+    loop_out = {"keyframes": sa["keyframes"], "loop_edges": sa["loop_edges"],
+                "ate_rmse_m": sa["ate_m"]}
+    last, batch_l, bslam_l, dist_l = phase11(dev, card, results, loop_out, (src, tgt, cfg))
+    print(f"phase 11: done in {time.perf_counter() - t0:.1f} s")
+    # each kernel reports the launches of a path that runs it: keyframe
+    # SLAM at full width for K1-K3 and G1, its small sequence on the card
+    # for K4, plain run_batch for K5, phase 7 for K6, run_slam --dist for
+    # G1's distributed mode
     path = {"moments_sparse": slam_launches, "nn_sparse": slam_launches,
             "estep_reduce": slam_launches, "gn_solve": slam_launches, "nn_dense": slam_small,
-            "moments_dense": small, "estep_fused": big}
+            "moments_dense": batch_l, "estep_fused": big, "gn_dist": dist_l}
     for r in results:
-        r["launches"] = path[r["name"]][r["name"]]
-        r["launches_per_bench_scan"] = per_scan[r["name"]]
-        r["launches_per_odometry_frame"] = odo[r["name"]] / SEQ_FRAMES
-        r["launches_per_slam_frame"] = slam_launches[r["name"]] / SLAM_FRAMES
-    print(f"phase 2-10: {time.perf_counter() - t_start:.1f} s")
+        n = r["name"]
+        r["launches"] = path[n][n]
+        r["launches_per_bench_scan"] = per_scan[n]
+        r["launches_per_odometry_frame"] = odo[n] / SEQ_FRAMES
+        r["launches_per_slam_frame"] = slam_launches[n] / SLAM_FRAMES
+        r["launches_per_batch_step"] = batch_l[n] / BATCH_FRAMES
+        r["launches_per_batch_slam_step"] = bslam_l[n] / SLAM_FRAMES
+        r["launches_per_dist_slam_frame"] = dist_l[n] / SLAM_FRAMES
+    print(f"phase 2-11: {time.perf_counter() - t_start:.1f} s")
 
+    import torch.distributed as tdist
+
+    tdist.destroy_process_group()
     print(json.dumps({"slam": slam_summary}))
+    print(json.dumps({"phase11": last}))
     print(json.dumps({"kernels": results}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,9 +13,10 @@ follow `semicp` so that each module's counterpart is easy to find:
   eval/      ATE / RPE (numpy, float64)
   utils/     JSONL metrics, phase timers, device drain, SLAM checkpoints
   slam/      keyframes, the pose graph and its LM, loop closure, submaps,
-             the scan prefetcher
-  dist/      batched alignment of independent pairs on one device
-  cli/       run_pair, run_odometry and run_slam (--device cuda|cpu)
+             the scan prefetcher, the Schur-complement map BA
+  dist/      the process-group mesh (NCCL, gloo), batched alignment of
+             independent pairs, the ring NN and the distributed align
+  cli/       run_pair, run_odometry, run_slam and run_batch (--device cuda|cpu)
 
 The hand-written CUDA kernels live in csrc/ and are built by nvcc at
 first use (kernels.py). On a CPU tensor every kernel wrapper takes its

@@ -25,12 +25,20 @@ everything the host reads of it, register/em_icp.py
 `make_robust_align_fn`); the pose graph lives on the host.
 The warm start goes up from pinned memory without a wait.
 
+With --dist (the fourth configuration) the submap becomes map blocks
+sharded over the mesh's ranks (dist/mesh.py; on one card a group of one
+under NCCL): scan-to-map odometry runs the distributed EM align (the ring
+NN and G1's distributed mode, dist/align_dist.py), with no health retry
+as in the reference, and the run ends with the Schur-complement map BA
+over the same mesh (slam/map_ba.py), whose statistics the result carries
+under "map_ba". Every rank runs the control plane; the poses of each PGO
+are rank 0's.
+
 Usage:
-  python -m semicp_torch.cli.run_slam --synthetic 120 [--loop] [--scan-to-map]
+  python -m semicp_torch.cli.run_slam --synthetic 120 [--loop] [--scan-to-map] [--dist]
   python -m semicp_torch.cli.run_slam --seq <kitti-seq-dir> [--voxel 0.3]
       [--out poses.txt] [--jsonl metrics.jsonl] [--checkpoint-dir ckpt/ --resume]
       [--device cuda|cpu]
---dist (a mesh-sharded submap and map BA) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ from semicp_torch.config import Config, parse_overrides
 from semicp_torch.data import save_kitti_poses
 from semicp_torch.geom.se3 import se3_exp
 from semicp_torch.register import make_robust_align_fn
+from semicp_torch.register.em_icp import _to_host
 from semicp_torch.slam.keyframes import KeyframeStore, keyframe_due, semantic_descriptor
 from semicp_torch.slam.loop_closure import (
     LoopVerifier,
@@ -83,8 +92,8 @@ def build_parser():
                     help="odometry aligns against the current submap instead of the "
                          "previous scan")
     ap.add_argument("--dist", action="store_true",
-                    help="shard the submap over a device mesh and finish with a "
-                         "distributed map BA: not ported yet, raises")
+                    help="shard the submap over the mesh's ranks (implies --scan-to-map) "
+                         "and finish with the distributed map BA")
     ap.add_argument("--gt", default=None, help="KITTI ground-truth poses.txt for ATE/RPE")
     ap.add_argument("--calib", default=None,
                     help="KITTI calib.txt (Tr): move --gt into the velodyne frame before "
@@ -194,15 +203,27 @@ def _upload_pose(T, dev) -> torch.Tensor:
     return t.pin_memory().to(dev, non_blocking=True)
 
 
+def _pgo(graph, cfg: Config, dev, mesh):
+    """optimize_pose_graph on dev; over a mesh every rank keeps rank 0's
+    poses (the LM's sums may differ from card to card)."""
+    graph = optimize_pose_graph(graph, cfg.slam, device=dev)
+    return graph if mesh is None else graph.replace(poses=mesh.agree(graph.poses))
+
+
 def run_slam(args, cfg: Config):
-    if args.dist:
-        raise NotImplementedError(
-            "run_slam --dist (the mesh-sharded submap and the distributed map BA) is not "
-            "ported yet: ROADMAP Queue 1, the dist/ item (dist/ across devices)")
     dev = setup_device(args.device)
     timer = PhaseTimer()
     align_fn = make_robust_align_fn(cfg)
     verifier = LoopVerifier(cfg)
+    mesh = map_align_fn = None
+    if args.dist:
+        from semicp_torch.dist.align_dist import make_dist_align_fn
+        from semicp_torch.dist.mesh import make_mesh
+
+        args.scan_to_map = True
+        mesh = make_mesh(dev)
+        dev = mesh.device
+        map_align_fn = make_dist_align_fn(mesh, cfg)
     ml = MetricsLogger(args.jsonl)
 
     gt_traj = None
@@ -298,7 +319,11 @@ def run_slam(args, cfg: Config):
                     anchor_pose = graph.poses[anchor_idx].astype(np.float64)
                     T_pred = T_now @ np.asarray(T_rel_prev, np.float64)
                     T_init = np.linalg.inv(anchor_pose) @ T_pred
-                    res = align_fn(cloud, sm_cloud, _upload_pose(T_init, dev))
+                    if map_align_fn is not None:
+                        res = _to_host(map_align_fn(cloud, sm_cloud, _upload_pose(T_init, dev)),
+                                       cloud, sm_cloud)[0]
+                    else:
+                        res = align_fn(cloud, sm_cloud, _upload_pose(T_init, dev))
                     T_new = anchor_pose @ res.T.numpy().astype(np.float64)
                     T_rel = np.linalg.inv(T_now) @ T_new
                 else:
@@ -343,7 +368,7 @@ def run_slam(args, cfg: Config):
                             n_loop_edges += 1
                 if accepted:
                     with timer.phase("pgo"):
-                        graph = optimize_pose_graph(graph, cfg.slam, device=dev)
+                        graph = _pgo(graph, cfg, dev, mesh)
                     # re-anchor the running pose on the corrected keyframe
                     T_now = graph.poses[kf.index].astype(np.float64)
                     ml.log(frame=frame, kind="pgo", edges=graph.n_edges, loops=len(accepted))
@@ -361,8 +386,18 @@ def run_slam(args, cfg: Config):
 
     # final PGO + trajectory recomposition against optimized keyframe poses
     if graph.n_edges > 0:
-        graph = optimize_pose_graph(graph, cfg.slam, device=dev)
+        graph = _pgo(graph, cfg, dev, mesh)
     final_kf = graph.poses.astype(np.float64)
+    ba_stats = None
+    if args.dist and len(store) >= 2:
+        # the fourth configuration's closer: the keyframe poses refined
+        # against the fused world map by the Schur BA over the mesh
+        from semicp_torch.slam.map_ba import refine_keyframes
+
+        with timer.phase("map_ba"):
+            final_kf, ba_stats = refine_keyframes(store, final_kf, cfg, mesh=mesh,
+                                                  voxel=args.voxel if args.seq else 0.1)
+        ml.log(frame=frame, kind="map_ba", **ba_stats)
     traj = np.stack([final_kf[a] @ rel for a, rel in anchors])
     save_kitti_poses(args.out, traj)
     ml.close()
@@ -370,6 +405,8 @@ def run_slam(args, cfg: Config):
     out = {"frames": len(traj), "keyframes": len(store), "edges": graph.n_edges,
            "loop_edges": n_loop_edges, "out": str(args.out), "device": device_name(dev),
            "timing": timer.summary()}
+    if ba_stats is not None:
+        out["map_ba"] = ba_stats
     if gt_traj is not None and len(traj) > 2:
         from semicp_torch.eval import ate_rmse, rpe
 

@@ -51,6 +51,31 @@
 //   with __fmul_rn/__fadd_rn (no FMA contraction), so they equal the plain
 //   version's to the bit; moved and rc in apply_T_planar's and
 //   sym3.rotate's order, so they equal the plain version's at the same T.
+//
+// Distributed mode (`gn_solve(..., axis_name=...)`, gauss_newton.py:37-84,
+// whose psums of H, g and the cost run in every GN pass; the port's
+// dist/align_dist.py): a collective cannot run inside the persistent
+// launch, so the loop is cut at its seam. A pass is two launches on each
+// rank with the group's all-reduce between them:
+//
+//   gn_reduce_kernel  the pass's 28 sums (and in the first pass the wsum
+//                     sum) at the state's pose over this rank's points:
+//                     each block's partial row (`block_sums`), one grid
+//                     barrier, then block 0 adds the rows in block order
+//                     (`grid_sums`) into a 32-float row. No float atomics.
+//   all_reduce(row)   NCCL or gloo, in the stream's order; every rank
+//                     then holds the same row to the bit.
+//   gn_update_kernel  one block: from the row, the damped solve, se3_exp
+//                     and the LM schedule (`gn_update`) on the same state
+//                     layout, then em_step; the first pass also starts
+//                     the state from T_in and keeps n_corr.
+//
+// The host runs max(max_iters, 1) passes and never reads the state: a
+// state whose loop has ended (passes = max_iters, or step <= step_eps)
+// is left as it is, and its reduce launch writes a zero row at once. So
+// every rank runs the same launches and collectives. Bound: bytes, the
+// 13 planes and wsum read once (56 B a point); each pass reads them
+// again, from L2 at the main path's sizes.
 
 #include <cooperative_groups.h>
 
@@ -510,6 +535,79 @@ __global__ void __launch_bounds__(kBlock, 2) gn_em_kernel(const GNArgs a) {
   }
 }
 
+struct DistArgs {
+  const float *z, *a6, *b3, *c, *wsum, *T_in, *state;
+  int n, share, first, max_iters;
+  float step_eps;
+  float *partials, *row;
+};
+
+// Element t of the state an M-step starts from at pose T_in (as G1's).
+__device__ __forceinline__ float initial_state(const float* __restrict__ T_in, int t,
+                                               float lam0) {
+  return t < 16 ? T_in[t]
+                : t == kCost ? -1.f : t == kStep ? semicp::pos_inf() : t == kLam ? lam0 : 0.f;
+}
+
+// One pass's row of sums over this rank's points at the state's pose (at
+// T_in in the first pass). A state whose loop has ended gets a zero row.
+__global__ void __launch_bounds__(kBlock, 2) gn_reduce_kernel(const DistArgs d) {
+  __shared__ __align__(16) float red[kGroups][kRow];
+  __shared__ float sums[kRow];
+  const float* __restrict__ pose = d.first ? d.T_in : d.state;
+  // uniform over the grid: every block reads the same state
+  const bool run = d.first || (d.state[kPasses] < static_cast<float>(d.max_iters) &&
+                               d.state[kStep] > d.step_eps);
+  if (!run) {
+    if (blockIdx.x == 0 && threadIdx.x < kRow) d.row[threadIdx.x] = 0.f;
+    return;
+  }
+  float T[12];
+#pragma unroll
+  for (int j = 0; j < 12; ++j) T[j] = pose[j];
+  GNArgs a{};
+  a.z = d.z;
+  a.a6 = d.a6;
+  a.b3 = d.b3;
+  a.c = d.c;
+  a.wsum = d.wsum;
+  a.n = d.n;
+  a.share = d.share;
+  const int lo = blockIdx.x * d.share;
+  const int cnt = max(0, min(d.n - lo, d.share));
+  block_sums<false>(a, nullptr, lo, cnt, T, d.first != 0, red, d.partials);
+  cg::this_grid().sync();
+  if (blockIdx.x == 0) {
+    grid_sums(d.partials, red, sums);
+    if (threadIdx.x < kRow) d.row[threadIdx.x] = threadIdx.x <= kSums ? sums[threadIdx.x] : 0.f;
+  }
+}
+
+// One pass's update of the state from the group's row (one block).
+__global__ void gn_update_kernel(const float* __restrict__ row, const float* __restrict__ T_in,
+                                 float* __restrict__ state, int first, int max_iters,
+                                 float lam0, float up, float down, float step_eps) {
+  __shared__ float st[kState];
+  __shared__ float s[kRow];
+  const int t = threadIdx.x;
+  if (t < kState) st[t] = first ? initial_state(T_in, t, lam0) : state[t];
+  if (t < kRow) s[t] = row[t];
+  __syncthreads();
+  if (t == 0) {
+    if (first) st[kNCorr] = s[kSums];
+    if (st[kPasses] < static_cast<float>(max_iters) && st[kStep] > step_eps) {
+      GNArgs a{};
+      a.lam0 = lam0;
+      a.up = up;
+      a.down = down;
+      gn_update(s, st, a);
+    }
+    st[kEmStep] = em_step(st + kT, T_in);
+  }
+  __syncthreads();
+  if (t < kState) state[t] = st[t];
+}
+
 }  // namespace
 
 // The launch plan of G1 for n points on the current device: out[0] blocks,
@@ -583,4 +681,52 @@ extern "C" cudaError_t semicp_gn_solve(const float* z, const float* cov6, const 
           : cudaLaunchCooperativeKernel(gn_em_kernel<false>, dim3(blocks), dim3(kBlock), args,
                                         0, stream);
   return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// The launch plan of the distributed reduce for n points on the current
+// device: out[0] blocks (no more than can be co-resident), out[1] the
+// points of a block.
+extern "C" cudaError_t semicp_gn_dist_plan(int n, int* out) {
+  int dev, sms, nb = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, gn_reduce_kernel, kBlock, 0);
+  if (err != cudaSuccess) return err;
+  const int blocks = std::max(1, std::min((n + kBlock - 1) / kBlock, nb * sms));
+  out[0] = blocks;
+  out[1] = (n + blocks - 1) / blocks;
+  return cudaSuccess;
+}
+
+// One GN pass's sums over this rank's points. z (3,n), a6 (6,n), b3 (3,n),
+// c (n,), wsum (n,), T_in (4,4) f32; state (64,) as semicp_gn_solve's, read
+// unless first; blocks and share from semicp_gn_dist_plan; partials
+// (blocks, 32) scratch; row (32,) out: the 28 sums, the wsum sum in the
+// first pass (0 after), zeros. One cooperative launch on `stream`.
+extern "C" cudaError_t semicp_gn_dist_reduce(const float* z, const float* a6, const float* b3,
+                                             const float* c, const float* wsum,
+                                             const float* T_in, const float* state, int n,
+                                             int blocks, int share, int first, int max_iters,
+                                             float step_eps, float* partials, float* row,
+                                             cudaStream_t stream) {
+  DistArgs d{z, a6, b3, c, wsum, T_in, state, n, share, first, max_iters, step_eps, partials,
+             row};
+  void* args[] = {&d};
+  const cudaError_t err = cudaLaunchCooperativeKernel(gn_reduce_kernel, dim3(blocks),
+                                                      dim3(kBlock), args, 0, stream);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// One GN pass's update of state (64,) from the all-reduced row (32,). The
+// first pass starts the state from T_in (which state must not hold) and
+// keeps n_corr = row[28]; every pass writes em_step against T_in. One
+// block on `stream`.
+extern "C" cudaError_t semicp_gn_dist_update(const float* row, const float* T_in, float* state,
+                                             int first, int max_iters, float lm_lambda0,
+                                             float lm_up, float lm_down, float step_eps,
+                                             cudaStream_t stream) {
+  gn_update_kernel<<<1, kState, 0, stream>>>(row, T_in, state, first, max_iters, lm_lambda0,
+                                             lm_up, lm_down, step_eps);
+  return cudaGetLastError();
 }

@@ -14,8 +14,9 @@ path went through the kernels. An auxiliary pass of a kernel (the moments'
 cost count) launches with no counter. The data-dependent kernels leave a
 device tensor in `WALKED`: the walks (K1, K2, K5, K6) the chunks they
 walked, each chunk being 32 x 32 query-target pairs, and G1 its state, whose
-element 55 counts the GN passes that ran; reading one syncs, so only a
-measurement does.
+element 55 counts the GN passes that ran (G1's distributed mode too, whose
+counter `gn_dist` counts a GN pass, its two launches and the all-reduce
+between them); reading one syncs, so only a measurement does.
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"moments_sparse": 0, "nn_sparse": 0, "estep_reduce": 0,
-            "moments_dense": 0, "nn_dense": 0, "estep_fused": 0, "gn_solve": 0}
+            "moments_dense": 0, "nn_dense": 0, "estep_fused": 0, "gn_solve": 0,
+            "gn_dist": 0}
 WALKED: dict = {}
 
 _P = ctypes.c_void_p
@@ -73,6 +75,13 @@ _SIGNATURES = {
     # lm_lambda0, lm_up, lm_down, step_eps, state, partials, moved, rc, stream
     "semicp_gn_solve": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
                         _F, _P, _P, _P, _P, _P),
+    # n, out (2,) int32: blocks, share
+    "semicp_gn_dist_plan": (_I, ctypes.POINTER(ctypes.c_int)),
+    # z, a6, b3, c, wsum, T_in, state, n, blocks, share, first, max_iters, step_eps,
+    # partials, row, stream
+    "semicp_gn_dist_reduce": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P),
+    # row, T_in, state, first, max_iters, lm_lambda0, lm_up, lm_down, step_eps, stream
+    "semicp_gn_dist_update": (_P, _P, _P, _I, _I, _F, _F, _F, _F, _P),
 }
 
 _lib = None

@@ -22,6 +22,20 @@ convergence test and the next E-step's inputs.
   LM schedule, em_step, n_corr, moved and rc in one cooperative launch,
   the state kept on the device. `move_source` is G1 with no GN pass (the
   first E-step's inputs).
+
+Distributed mode (`gn_solve(..., axis_name=...)` of the JAX package: the
+points sharded over a mesh, H, g and the cost all-reduced in every GN
+pass; dist/align_dist.py runs it):
+
+* `gn_solve_dist_plain` is `gn_solve_plain` with the group's all-reduce
+  of each pass's system; `em_tail_dist_plain` adds em_step, the
+  all-reduced n_corr and the local moved and rc. They are the CPU path and
+  the reference of:
+* `em_tail_dist` on CUDA: `gn_solve_dist` runs max(gn.max_iters, 1) GN
+  passes of G1's distributed entries, each a reduce launch (the pass's 29
+  sums over this rank's points, added in block order), the all-reduce of
+  that row and an update launch (the solve, se3_exp, the LM schedule and
+  em_step on G1's state), with no host read; then `move_source`.
 """
 
 from __future__ import annotations
@@ -67,9 +81,11 @@ def apply_T_planar(T, z):
     return px, py, pz
 
 
-def gn_solve_plain(T0, src_planes, a6, b3, c, cfg: GNConfig):
+def gn_solve_plain(T0, src_planes, a6, b3, c, cfg: GNConfig, reduce=None):
     """Minimize sum_i c_i - 2 b_i.p_i + p_i.A_i p_i over T, p_i = T z_i.
 
+    `reduce(H, g, cost)`, where given, maps each pass's system over these
+    points to the system over all of them (`gn_solve_dist_plain`).
     Returns (T, final_cost, last_step_norm, H (6,6) at the final
     iterate), all tensors on T0's device.
     """
@@ -83,6 +99,8 @@ def gn_solve_plain(T0, src_planes, a6, b3, c, cfg: GNConfig):
         active = step > cfg.step_eps
         p = apply_T_planar(T, src_planes)
         H_i, g, cost_i = normal_equations_collapsed(a6, b3, c, p)
+        if reduce is not None:
+            H_i, g, cost_i = reduce(H_i, g, cost_i)
         damped = H_i + lam * torch.diag(torch.diagonal(H_i))
         delta = torch.linalg.solve_ex(damped, -g)[0]
         T_new = se3_exp(delta) @ T
@@ -210,4 +228,88 @@ def em_tail(T_in, z, cov6, a6, b3, c, wsum, cfg: GNConfig, out: TailOut | None =
                    cfg.lm_lambda0, cfg.lm_up, cfg.lm_down, cfg.step_eps, out.ptrs[0],
                    partials.data_ptr(), *out.ptrs[1:])
     kernels.WALKED["gn_solve"] = out.state
+    return out.tail
+
+
+def gn_solve_dist_plain(T0, src_planes, a6, b3, c, cfg: GNConfig, mesh):
+    """`gn_solve_plain` over points sharded on the mesh's ranks: each pass's
+    H, g and cost all-reduced over the group (one collective a pass), so
+    every rank takes the same steps to the bit."""
+
+    def reduce(H, g, cost):
+        flat = mesh.all_reduce(torch.cat([H.reshape(36), g.reshape(6), cost.reshape(1)]))
+        return flat[:36].reshape(6, 6), flat[36:42], flat[42]
+
+    return gn_solve_plain(T0, src_planes, a6, b3, c, cfg, reduce=reduce)
+
+
+def em_tail_dist_plain(T_in, z, cov6, a6, b3, c, wsum, cfg: GNConfig, mesh) -> EMTail:
+    """`em_tail_plain` over points sharded on the mesh's ranks: the M-step of
+    `gn_solve_dist_plain`, em_step, n_corr summed over the group, and this
+    rank's moved and rc."""
+    T, cost, step, H = gn_solve_dist_plain(T_in, z, a6, b3, c, cfg, mesh)
+    em_step = torch.linalg.vector_norm(se3_log(T @ se3_inverse(T_in)))
+    n_corr = mesh.all_reduce(torch.sum(wsum).reshape(1))[0]
+    moved, rc = move_source_plain(T, z, cov6)
+    return EMTail(T, cost, step, H, em_step, n_corr, moved, rc)
+
+
+def dist_plan(dev: torch.device, n: int):
+    """The distributed reduce's launch plan for n points on dev, (blocks,
+    points a block), and its scratch: the partial rows (blocks, 32) and
+    the row (32,) the group all-reduces; made once and kept (launches and
+    collectives run in stream order, so calls share them)."""
+    key = ("dist", dev.index, n)
+    plan = _PLANS.get(key)
+    if plan is None:
+        out = (ctypes.c_int * 2)()
+        with torch.cuda.device(dev):
+            err = kernels.library().semicp_gn_dist_plan(n, out)
+        if err != 0:
+            raise RuntimeError(f"semicp_gn_dist_plan: CUDA error {err}")
+        blocks, share = out
+        partials = torch.empty((blocks, GN_ROW), dtype=torch.float32, device=dev)
+        row = torch.empty((GN_ROW,), dtype=torch.float32, device=dev)
+        plan = _PLANS[key] = (blocks, share, partials, row)
+    return plan
+
+
+def gn_solve_dist(T_in, z, a6, b3, c, wsum, cfg: GNConfig, mesh, out: TailOut) -> TailOut:
+    """`gn_solve_dist_plain`'s M-step by G1's distributed entries (CUDA
+    tensors): max(cfg.max_iters, 1) GN passes of reduce, all-reduce and
+    update into out's state, which must not hold T_in. Each pass counts
+    one `gn_dist` launch. The state afterwards holds T, H, cost, step,
+    the passes run, em_step and the all-reduced n_corr (`TailOut.tail`,
+    whose moved and rc this leaves as they were)."""
+    dev = T_in.device
+    n = z.shape[1]
+    for t, name, shape in ((T_in, "T_in", (4, 4)), (z, "z", (3, n)), (a6, "a6", (6, n)),
+                           (b3, "b3", (3, n)), (c, "c", (n,)), (wsum, "wsum", (n,))):
+        kernels.check(t, name, torch.float32, shape)
+    blocks, share, partials, row = dist_plan(dev, n)
+    for p in range(max(cfg.max_iters, 1)):
+        first = int(p == 0)
+        kernels.launch("semicp_gn_dist_reduce", None, dev, z.data_ptr(), a6.data_ptr(),
+                       b3.data_ptr(), c.data_ptr(), wsum.data_ptr(), T_in.data_ptr(),
+                       out.ptrs[0], n, blocks, share, first, cfg.max_iters, cfg.step_eps,
+                       partials.data_ptr(), row.data_ptr())
+        mesh.all_reduce(row)
+        kernels.launch("semicp_gn_dist_update", "gn_dist", dev, row.data_ptr(),
+                       T_in.data_ptr(), out.ptrs[0], first, cfg.max_iters, cfg.lm_lambda0,
+                       cfg.lm_up, cfg.lm_down, cfg.step_eps)
+    kernels.WALKED["gn_dist"] = out.state
+    return out
+
+
+def em_tail_dist(T_in, z, cov6, a6, b3, c, wsum, cfg: GNConfig, mesh,
+                 out: TailOut | None = None) -> EMTail:
+    """`em_tail_dist_plain`'s result: by it on CPU tensors; on CUDA by
+    `gn_solve_dist`, then G1 with no GN pass at the new pose (this rank's
+    moved and rc), all into out's buffers (`tail_outputs`; new ones where
+    not given), whose state must not hold T_in."""
+    if not T_in.is_cuda:
+        return em_tail_dist_plain(T_in, z, cov6, a6, b3, c, wsum, cfg, mesh)
+    out = out or tail_outputs(z.shape[1], T_in.device)[0]
+    gn_solve_dist(T_in, z, a6, b3, c, wsum, cfg, mesh, out)
+    move_source(out.tail.T, z, cov6, out)
     return out.tail

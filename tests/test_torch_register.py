@@ -491,7 +491,9 @@ def test_import_pulls_in_neither_jax_nor_semicp():
             "semicp_torch.kernels, semicp_torch.cli.run_odometry, semicp_torch.cli.run_pair, "
             "semicp_torch.register.ndt, semicp_torch.eval, semicp_torch.utils, "
             "semicp_torch.slam.pipeline, semicp_torch.data.native, semicp_torch.cli.run_slam, "
-            "semicp_torch.slam, semicp_torch.dist, semicp_torch.utils.checkpoint; "
+            "semicp_torch.slam, semicp_torch.dist, semicp_torch.utils.checkpoint, "
+            "semicp_torch.cli.run_batch, semicp_torch.dist.ring_corr, "
+            "semicp_torch.dist.align_dist, semicp_torch.slam.schur, semicp_torch.slam.map_ba; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'semicp')); "
             "print(bad); sys.exit(1 if bad else 0)")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -349,9 +349,13 @@ def test_run_slam_matches_jax(tmp_path):
 
 
 def test_run_slam_raises_for_dist_and_missing_card(tmp_path):
-    args = SLAM[:2] + ["2"] + SLAM[3:] + ["--out", str(tmp_path / "p.txt")]
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        t_slam_main(args + ["--dist", "--device", "cpu"])
+    """--dist runs where --device says (on the CPU a gloo group of one; two
+    frames make one keyframe, so no map BA); without a card the default
+    device raises, with --dist or not: nothing falls back to the CPU."""
+    args = SLAM[:1] + ["2"] + SLAM[2:] + ["--out", str(tmp_path / "p.txt")]
+    out = t_slam_main(args + ["--dist", "--device", "cpu"])
+    assert out["frames"] == 2 and out["device"] == "cpu" and "map_ba" not in out
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            t_slam_main(args)
+        for extra in ([], ["--dist"]):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                t_slam_main(args + extra)
