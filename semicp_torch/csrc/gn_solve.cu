@@ -52,30 +52,42 @@
 //   version's to the bit; moved and rc in apply_T_planar's and
 //   sym3.rotate's order, so they equal the plain version's at the same T.
 //
-// Distributed mode (`gn_solve(..., axis_name=...)`, gauss_newton.py:37-84,
-// whose psums of H, g and the cost run in every GN pass; the port's
-// dist/align_dist.py): a collective cannot run inside the persistent
-// launch, so the loop is cut at its seam. A pass is two launches on each
-// rank with the group's all-reduce between them:
+// Distributed mode, G1d (`gn_solve(..., axis_name=...)`,
+// gauss_newton.py:37-84, whose psums of H, g and the cost run in every GN
+// pass; the port's dist/align_dist.py). A collective cannot run inside a
+// launch, but the psums need not run in every pass: the E-step freezes the
+// planes for the M-step, and a pass's 28 sums are polynomials of degree
+// <= 2 in p = T z. With zt = (z, 1) and pt = (T z, 1) = T zt, the 74
+// pose-independent sums of a_k zt zt^T (60), b_j zt (12), c and wsum fix
+// every pass's system: sum a_k pt pt^T = T (sum a_k zt zt^T) T^T, and each
+// of the 28 sums is an integer combination of those (the term table,
+// gauss_newton.py `_MOMENT_TERMS`, which the tail kernel reads from the
+// device).
+// So the one collective of an M-step runs before its GN loop. Each call
+// on each rank is two launches with the group's all-reduce between them:
 //
-//   gn_reduce_kernel  the pass's 28 sums (and in the first pass the wsum
-//                     sum) at the state's pose over this rank's points:
-//                     each block's partial row (`block_sums`), one grid
-//                     barrier, then block 0 adds the rows in block order
-//                     (`grid_sums`) into a 32-float row. No float atomics.
-//   all_reduce(row)   NCCL or gloo, in the stream's order; every rank
-//                     then holds the same row to the bit.
-//   gn_update_kernel  one block: from the row, the damped solve, se3_exp
-//                     and the LM schedule (`gn_update`) on the same state
-//                     layout, then em_step; the first pass also starts
-//                     the state from T_in and keeps n_corr.
+//   gn_moments_kernel    the 74 sums over this rank's points in float64
+//                        (c cancels against 2 b.p and p.A p in the cost:
+//                        float32 sums would lose it), each point's 56 B of
+//                        planes read once; each block's partial row, one
+//                        grid barrier, then block 0 adds the rows in block
+//                        order into a row of 80 doubles. No float atomics:
+//                        two calls give the same bits.
+//   all_reduce(row)      NCCL or gloo, in the stream's order; every rank
+//                        then holds the same row to the bit.
+//   gn_dist_tail_kernel  every block runs the same GN passes from the row:
+//                        warp 0 forms the pass's moments at the pose and
+//                        its 28 sums in float64, rounds them to f32, and
+//                        thread 0 runs G1's `gn_update` on G1's state
+//                        layout, until step <= step_eps or max_iters. Block
+//                        0 writes the state (n_corr from the row, em_step);
+//                        then every block writes moved and rc at the final
+//                        T for its points, as G1's tail does.
 //
-// The host runs max(max_iters, 1) passes and never reads the state: a
-// state whose loop has ended (passes = max_iters, or step <= step_eps)
-// is left as it is, and its reduce launch writes a zero row at once. So
-// every rank runs the same launches and collectives. Bound: bytes, the
-// 13 planes and wsum read once (56 B a point); each pass reads them
-// again, from L2 at the main path's sizes.
+// Ranks agree to the bit: the loop reads nothing but the all-reduced row
+// and the state. Bound: bytes, 116 B a point (z, a6, b3, c, wsum read by
+// the moments kernel, z and cov6 by the tail, moved and rc written); the
+// GN passes cost the tail kernel microseconds, whatever N.
 
 #include <cooperative_groups.h>
 
@@ -435,6 +447,38 @@ __device__ float em_step(const float* __restrict__ T, const float* __restrict__ 
   return sqrtf(out);
 }
 
+// The next E-step's inputs of point i at pose T (top three rows): moved =
+// T z (apply_T_planar's order) and rc = R C R^T (sym3.rotate's order).
+__device__ __forceinline__ void move_point(const float (&T)[12], float zx, float zy, float zz,
+                                           const float* __restrict__ cov6, int i, size_t ns,
+                                           float* __restrict__ moved, float* __restrict__ rc) {
+  moved[i] = add(add(add(mul(T[0], zx), mul(T[1], zy)), mul(T[2], zz)), T[3]);
+  moved[ns + i] = add(add(add(mul(T[4], zx), mul(T[5], zy)), mul(T[6], zz)), T[7]);
+  moved[2 * ns + i] = add(add(add(mul(T[8], zx), mul(T[9], zy)), mul(T[10], zz)), T[11]);
+  const float xx = __ldg(cov6 + i), yy = __ldg(cov6 + ns + i);
+  const float zz6 = __ldg(cov6 + 2 * ns + i), xy = __ldg(cov6 + 3 * ns + i);
+  const float xz = __ldg(cov6 + 4 * ns + i), yz = __ldg(cov6 + 5 * ns + i);
+  float row[3][3];  // row a of C R^T (sym3.rotate `row`)
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    const float r0 = T[4 * r], r1 = T[4 * r + 1], r2 = T[4 * r + 2];
+    row[r][0] = add(add(mul(xx, r0), mul(xy, r1)), mul(xz, r2));
+    row[r][1] = add(add(mul(xy, r0), mul(yy, r1)), mul(yz, r2));
+    row[r][2] = add(add(mul(xz, r0), mul(yz, r1)), mul(zz6, r2));
+  }
+  // sym3.rotate `dot`: row ra against row b of R
+  auto dot = [&](int ra, int b) {
+    return add(add(mul(row[ra][0], T[4 * b]), mul(row[ra][1], T[4 * b + 1])),
+               mul(row[ra][2], T[4 * b + 2]));
+  };
+  rc[i] = dot(0, 0);
+  rc[ns + i] = dot(1, 1);
+  rc[2 * ns + i] = dot(2, 2);
+  rc[3 * ns + i] = dot(0, 1);
+  rc[4 * ns + i] = dot(0, 2);
+  rc[5 * ns + i] = dot(1, 2);
+}
+
 template <bool kStaged>
 __global__ void __launch_bounds__(kBlock, 2) gn_em_kernel(const GNArgs a) {
   extern __shared__ float stage[];           // kPlanes x share (kStaged)
@@ -507,105 +551,234 @@ __global__ void __launch_bounds__(kBlock, 2) gn_em_kernel(const GNArgs a) {
       zy = __ldg(a.z + ns + i);
       zz = __ldg(a.z + 2 * ns + i);
     }
-    a.moved[i] = add(add(add(mul(T[0], zx), mul(T[1], zy)), mul(T[2], zz)), T[3]);
-    a.moved[ns + i] = add(add(add(mul(T[4], zx), mul(T[5], zy)), mul(T[6], zz)), T[7]);
-    a.moved[2 * ns + i] = add(add(add(mul(T[8], zx), mul(T[9], zy)), mul(T[10], zz)), T[11]);
-    const float xx = __ldg(a.cov6 + i), yy = __ldg(a.cov6 + ns + i);
-    const float zz6 = __ldg(a.cov6 + 2 * ns + i), xy = __ldg(a.cov6 + 3 * ns + i);
-    const float xz = __ldg(a.cov6 + 4 * ns + i), yz = __ldg(a.cov6 + 5 * ns + i);
-    float row[3][3];  // row a of C R^T (sym3.rotate `row`)
-#pragma unroll
-    for (int r = 0; r < 3; ++r) {
-      const float r0 = T[4 * r], r1 = T[4 * r + 1], r2 = T[4 * r + 2];
-      row[r][0] = add(add(mul(xx, r0), mul(xy, r1)), mul(xz, r2));
-      row[r][1] = add(add(mul(xy, r0), mul(yy, r1)), mul(yz, r2));
-      row[r][2] = add(add(mul(xz, r0), mul(yz, r1)), mul(zz6, r2));
-    }
-    // sym3.rotate `dot`: row ra against row b of R
-    auto dot = [&](int ra, int b) {
-      return add(add(mul(row[ra][0], T[4 * b]), mul(row[ra][1], T[4 * b + 1])),
-                 mul(row[ra][2], T[4 * b + 2]));
-    };
-    a.rc[i] = dot(0, 0);
-    a.rc[ns + i] = dot(1, 1);
-    a.rc[2 * ns + i] = dot(2, 2);
-    a.rc[3 * ns + i] = dot(0, 1);
-    a.rc[4 * ns + i] = dot(0, 2);
-    a.rc[5 * ns + i] = dot(1, 2);
+    move_point(T, zx, zy, zz, a.cov6, i, ns, a.moved, a.rc);
   }
 }
 
-struct DistArgs {
-  const float *z, *a6, *b3, *c, *wsum, *T_in, *state;
-  int n, share, first, max_iters;
-  float step_eps;
-  float *partials, *row;
+// ---- G1d, the distributed mode ----
+
+constexpr int kMom = 80;       // the moment row: 74 sums, then zeros
+constexpr int kMomUsed = 74;   // [10 k + s] a_k zt zt^T, [60 + 4 j + m] b_j zt, [72] c, [73] wsum
+constexpr int kPoseMom = 73;   // the row's first 73 sums at a pose (pt for zt)
+constexpr int kMomGroups = kBlock / (kMom / 2);  // double2 columns read per block row
+constexpr int kTerms = 10;     // the most terms of one of the 28 sums
+
+// (m, l) of the symmetric zt zt^T in the row's order, and its inverse
+__constant__ signed char kSym4[10][2] = {{0, 0}, {1, 1}, {2, 2}, {0, 1}, {0, 2},
+                                         {1, 2}, {0, 3}, {1, 3}, {2, 3}, {3, 3}};
+__constant__ signed char kSym4Index[4][4] = {{0, 3, 4, 6}, {3, 1, 5, 7}, {4, 5, 2, 8},
+                                             {6, 7, 8, 9}};
+
+struct MomArgs {
+  const float *z, *a6, *b3, *c, *wsum;
+  int n, share;
+  double *partials, *row;
 };
 
-// Element t of the state an M-step starts from at pose T_in (as G1's).
-__device__ __forceinline__ float initial_state(const float* __restrict__ T_in, int t,
-                                               float lam0) {
-  return t < 16 ? T_in[t]
-                : t == kCost ? -1.f : t == kStep ? semicp::pos_inf() : t == kLam ? lam0 : 0.f;
+// This rank's moment row: each thread's sums over its points in float64,
+// each block's partial row, one grid barrier, then block 0 adds the rows
+// in block order into row (kMom doubles).
+__global__ void __launch_bounds__(kBlock, 1) gn_moments_kernel(const MomArgs m) {
+  __shared__ double red[kWarps][kMomUsed];
+  __shared__ double2 red2[kMomGroups][kMom / 2];
+  const size_t ns = static_cast<size_t>(m.n);
+  const int lo = blockIdx.x * m.share;
+  const int cnt = max(0, min(m.n - lo, m.share));
+  double acc[kMomUsed];
+#pragma unroll
+  for (int j = 0; j < kMomUsed; ++j) acc[j] = 0.0;
+  for (int li = threadIdx.x; li < cnt; li += kBlock) {
+    const int i = lo + li;
+    const double x = __ldg(m.z + i), y = __ldg(m.z + ns + i), z = __ldg(m.z + 2 * ns + i);
+    const double zt[4] = {x, y, z, 1.0};
+    const double zz[10] = {x * x, y * y, z * z, x * y, x * z, y * z, x, y, z, 1.0};  // kSym4
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      const double a = __ldg(m.a6 + k * ns + i);
+#pragma unroll
+      for (int q = 0; q < 10; ++q) acc[10 * k + q] += a * zz[q];
+    }
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const double b = __ldg(m.b3 + j * ns + i);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[60 + 4 * j + q] += b * zt[q];
+    }
+    acc[72] += __ldg(m.c + i);
+    acc[73] += __ldg(m.wsum + i);
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int j = 0; j < kMomUsed; ++j) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) acc[j] += __shfl_xor_sync(semicp::kFull, acc[j], off);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int j = 0; j < kMomUsed; ++j) red[warp][j] = acc[j];
+  }
+  __syncthreads();
+  if (threadIdx.x < kMom) {
+    double v = 0.0;
+    if (threadIdx.x < kMomUsed) {
+      v = red[0][threadIdx.x];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) v += red[w][threadIdx.x];
+    }
+    __stcg(m.partials + static_cast<size_t>(blockIdx.x) * kMom + threadIdx.x, v);
+  }
+  cg::this_grid().sync();
+  if (blockIdx.x != 0) return;
+  // thread (g, q) adds double2 column q of rows g, g + kMomGroups, ...;
+  // then each column adds the groups in order
+  const int g = threadIdx.x / (kMom / 2), q = threadIdx.x % (kMom / 2);
+  if (g < kMomGroups) {
+    const double2* r2 = reinterpret_cast<const double2*>(m.partials);
+    double2 v = make_double2(0.0, 0.0);
+    for (int b = g; b < static_cast<int>(gridDim.x); b += kMomGroups) {
+      const double2 x = __ldcg(r2 + static_cast<size_t>(b) * (kMom / 2) + q);
+      v.x += x.x;
+      v.y += x.y;
+    }
+    red2[g][q] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < kMom / 2) {
+    double2 v = red2[0][threadIdx.x];
+#pragma unroll
+    for (int w = 1; w < kMomGroups; ++w) {
+      v.x += red2[w][threadIdx.x].x;
+      v.y += red2[w][threadIdx.x].y;
+    }
+    m.row[2 * threadIdx.x] = v.x;
+    m.row[2 * threadIdx.x + 1] = v.y;
+  }
 }
 
-// One pass's row of sums over this rank's points at the state's pose (at
-// T_in in the first pass). A state whose loop has ended gets a zero row.
-__global__ void __launch_bounds__(kBlock, 2) gn_reduce_kernel(const DistArgs d) {
-  __shared__ __align__(16) float red[kGroups][kRow];
-  __shared__ float sums[kRow];
-  const float* __restrict__ pose = d.first ? d.T_in : d.state;
-  // uniform over the grid: every block reads the same state
-  const bool run = d.first || (d.state[kPasses] < static_cast<float>(d.max_iters) &&
-                               d.state[kStep] > d.step_eps);
-  if (!run) {
-    if (blockIdx.x == 0 && threadIdx.x < kRow) d.row[threadIdx.x] = 0.f;
-    return;
+// Warp 0's share of every GN pass, read from the tables once a launch:
+// the pose moments this lane forms (entries lane, lane + 32, lane + 64 of
+// F: sum a_k pt_r pt_c at k < 6, sum b_j pt_r at k = 6 + j) and the terms
+// coef x F[idx] of its sum (lanes < 28), from the term table terms (2, 28,
+// kTerms) int32: [0] indices, -1 after the last; [1] coefficients.
+struct PassLane {
+  int k[3], r[3], c[3];
+  int idx[kTerms];
+  double coef[kTerms];
+};
+
+__device__ __forceinline__ PassLane pass_lane(int lane, const int* __restrict__ terms) {
+  PassLane pl;
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    const int e = lane + 32 * q;
+    pl.k[q] = e < 60 ? e / 10 : e < kPoseMom - 1 ? 6 + ((e - 60) >> 2) : -1;
+    pl.r[q] = e < 60 ? kSym4[e % 10][0] : (e - 60) & 3;
+    pl.c[q] = e < 60 ? kSym4[e % 10][1] : 3;
+  }
+#pragma unroll
+  for (int t = 0; t < kTerms; ++t) {
+    const int idx = lane < kSums ? __ldg(terms + lane * kTerms + t) : -1;
+    const int coef = lane < kSums ? __ldg(terms + (kSums + lane) * kTerms + t) : 0;
+    pl.idx[t] = idx < 0 ? 0 : idx;
+    pl.coef[t] = idx < 0 ? 0.0 : static_cast<double>(coef);
+  }
+  return pl;
+}
+
+// One GN pass's 28 sums at the state's pose from the moment row mom, by
+// warp 0: F = the row's sums at the pose (pt = T zt: T M_k T^T for each
+// a_k, M_b T^T, c), then each sum from its terms, rounded to f32 into s.
+__device__ __forceinline__ void pass_sums(const PassLane& pl, const double* __restrict__ mom,
+                                          const float* __restrict__ st, double* __restrict__ F,
+                                          float* __restrict__ s) {
+  const int lane = threadIdx.x;
+  auto Tt = [&](int r, int col) -> double {  // the pose, its fourth row (0, 0, 0, 1)
+    return r < 3 ? static_cast<double>(st[kT + 4 * r + col]) : (col == 3 ? 1.0 : 0.0);
+  };
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    const int k = pl.k[q], r = pl.r[q], col = pl.c[q];
+    double v = 0.0;
+    if (k >= 6) {
+      const double* M = mom + 60 + 4 * (k - 6);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) v += Tt(r, a) * M[a];
+    } else if (k >= 0) {
+      const double* M = mom + 10 * k;
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        double w = 0.0;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) w += M[kSym4Index[a][b]] * Tt(col, b);
+        v += Tt(r, a) * w;
+      }
+    }
+    if (k >= 0) F[lane + 32 * q] = v;
+  }
+  if (lane == 0) F[kPoseMom - 1] = mom[72];
+  __syncwarp();
+  if (lane < kSums) {
+    double v = 0.0;
+#pragma unroll
+    for (int t = 0; t < kTerms; ++t) v += pl.coef[t] * F[pl.idx[t]];
+    s[lane] = __double2float_rn(v);
+  }
+}
+
+struct TailArgs {
+  const double* row;
+  const int* terms;
+  const float *T_in, *z, *cov6;
+  int n, max_iters;
+  float lam0, up, down, step_eps;
+  float *state, *moved, *rc;
+};
+
+// Every GN pass from the all-reduced row, the same in every block, then
+// em_step and n_corr (block 0 writes the state) and moved and rc of the
+// block's points at the final pose.
+__global__ void __launch_bounds__(kBlock) gn_dist_tail_kernel(const TailArgs d) {
+  __shared__ double mom[kMomUsed];
+  __shared__ double F[kPoseMom];
+  __shared__ float s[kRow];
+  __shared__ float st[kState];
+  __shared__ float t_in[16];
+  const int t = threadIdx.x;
+  if (t < kMomUsed) mom[t] = d.row[t];
+  if (t < 16) t_in[t] = d.T_in[t];
+  if (t < kState)
+    st[t] = t < 16 ? d.T_in[t]
+                   : t == kCost ? -1.f
+                   : t == kStep ? semicp::pos_inf()
+                   : t == kLam ? d.lam0 : 0.f;
+  __syncthreads();
+  GNArgs a{};
+  a.lam0 = d.lam0;
+  a.up = d.up;
+  a.down = d.down;
+  const PassLane pl = pass_lane(t & 31, d.terms);
+  // uniform over the grid: every block holds the same state
+  for (int it = 0; it < d.max_iters && st[kStep] > d.step_eps; ++it) {
+    if (t < 32) pass_sums(pl, mom, st, F, s);
+    __syncthreads();
+    if (t == 0) gn_update(s, st, a);
+    __syncthreads();
+  }
+  if (blockIdx.x == 0) {
+    if (t == 0) {
+      st[kNCorr] = __double2float_rn(mom[73]);
+      st[kEmStep] = em_step(st + kT, t_in);
+    }
+    __syncthreads();
+    if (t < kState) d.state[t] = st[t];
   }
   float T[12];
 #pragma unroll
-  for (int j = 0; j < 12; ++j) T[j] = pose[j];
-  GNArgs a{};
-  a.z = d.z;
-  a.a6 = d.a6;
-  a.b3 = d.b3;
-  a.c = d.c;
-  a.wsum = d.wsum;
-  a.n = d.n;
-  a.share = d.share;
-  const int lo = blockIdx.x * d.share;
-  const int cnt = max(0, min(d.n - lo, d.share));
-  block_sums<false>(a, nullptr, lo, cnt, T, d.first != 0, red, d.partials);
-  cg::this_grid().sync();
-  if (blockIdx.x == 0) {
-    grid_sums(d.partials, red, sums);
-    if (threadIdx.x < kRow) d.row[threadIdx.x] = threadIdx.x <= kSums ? sums[threadIdx.x] : 0.f;
-  }
-}
-
-// One pass's update of the state from the group's row (one block).
-__global__ void gn_update_kernel(const float* __restrict__ row, const float* __restrict__ T_in,
-                                 float* __restrict__ state, int first, int max_iters,
-                                 float lam0, float up, float down, float step_eps) {
-  __shared__ float st[kState];
-  __shared__ float s[kRow];
-  const int t = threadIdx.x;
-  if (t < kState) st[t] = first ? initial_state(T_in, t, lam0) : state[t];
-  if (t < kRow) s[t] = row[t];
-  __syncthreads();
-  if (t == 0) {
-    if (first) st[kNCorr] = s[kSums];
-    if (st[kPasses] < static_cast<float>(max_iters) && st[kStep] > step_eps) {
-      GNArgs a{};
-      a.lam0 = lam0;
-      a.up = up;
-      a.down = down;
-      gn_update(s, st, a);
-    }
-    st[kEmStep] = em_step(st + kT, T_in);
-  }
-  __syncthreads();
-  if (t < kState) state[t] = st[t];
+  for (int j = 0; j < 12; ++j) T[j] = st[kT + j];
+  const size_t ns = static_cast<size_t>(d.n);
+  for (int i = blockIdx.x * kBlock + t; i < d.n; i += gridDim.x * kBlock)
+    move_point(T, __ldg(d.z + i), __ldg(d.z + ns + i), __ldg(d.z + 2 * ns + i), d.cov6, i, ns,
+               d.moved, d.rc);
 }
 
 }  // namespace
@@ -683,50 +856,57 @@ extern "C" cudaError_t semicp_gn_solve(const float* z, const float* cov6, const 
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// The launch plan of the distributed reduce for n points on the current
-// device: out[0] blocks (no more than can be co-resident), out[1] the
-// points of a block.
+// G1d's launch plan for n points on the current device: out[0] blocks of
+// the moments kernel (no more than can be co-resident: a grid barrier),
+// out[1] its points a block, out[2] blocks of the tail kernel (one wave).
 extern "C" cudaError_t semicp_gn_dist_plan(int n, int* out) {
-  int dev, sms, nb = 0;
+  int dev, sms, nb_m = 0, nb_t = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, gn_reduce_kernel, kBlock, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb_m, gn_moments_kernel, kBlock, 0);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb_t, gn_dist_tail_kernel, kBlock, 0);
   if (err != cudaSuccess) return err;
-  const int blocks = std::max(1, std::min((n + kBlock - 1) / kBlock, nb * sms));
+  const int want = std::max(1, (n + kBlock - 1) / kBlock);
+  const int blocks = std::max(1, std::min(want, nb_m * sms));
   out[0] = blocks;
   out[1] = (n + blocks - 1) / blocks;
+  out[2] = std::max(1, std::min(want, nb_t * sms));
   return cudaSuccess;
 }
 
-// One GN pass's sums over this rank's points. z (3,n), a6 (6,n), b3 (3,n),
-// c (n,), wsum (n,), T_in (4,4) f32; state (64,) as semicp_gn_solve's, read
-// unless first; blocks and share from semicp_gn_dist_plan; partials
-// (blocks, 32) scratch; row (32,) out: the 28 sums, the wsum sum in the
-// first pass (0 after), zeros. One cooperative launch on `stream`.
-extern "C" cudaError_t semicp_gn_dist_reduce(const float* z, const float* a6, const float* b3,
-                                             const float* c, const float* wsum,
-                                             const float* T_in, const float* state, int n,
-                                             int blocks, int share, int first, int max_iters,
-                                             float step_eps, float* partials, float* row,
-                                             cudaStream_t stream) {
-  DistArgs d{z, a6, b3, c, wsum, T_in, state, n, share, first, max_iters, step_eps, partials,
-             row};
-  void* args[] = {&d};
-  const cudaError_t err = cudaLaunchCooperativeKernel(gn_reduce_kernel, dim3(blocks),
+// This rank's moment row. z (3,n), a6 (6,n), b3 (3,n), c (n,), wsum (n,)
+// f32 on the device; blocks and share from semicp_gn_dist_plan; partials
+// (blocks, 80) f64 scratch; row (80,) f64 out: [10 k + s] sum a_k zt_m
+// zt_l (zt = (z, 1), (m, l) = kSym4[s]), [60 + 4 j + m] sum b_j zt_m,
+// [72] sum c, [73] sum wsum, zeros after. One cooperative launch on
+// `stream`.
+extern "C" cudaError_t semicp_gn_dist_moments(const float* z, const float* a6, const float* b3,
+                                              const float* c, const float* wsum, int n,
+                                              int blocks, int share, double* partials,
+                                              double* row, cudaStream_t stream) {
+  MomArgs m{z, a6, b3, c, wsum, n, share, partials, row};
+  void* args[] = {&m};
+  const cudaError_t err = cudaLaunchCooperativeKernel(gn_moments_kernel, dim3(blocks),
                                                       dim3(kBlock), args, 0, stream);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// One GN pass's update of state (64,) from the all-reduced row (32,). The
-// first pass starts the state from T_in (which state must not hold) and
-// keeps n_corr = row[28]; every pass writes em_step against T_in. One
-// block on `stream`.
-extern "C" cudaError_t semicp_gn_dist_update(const float* row, const float* T_in, float* state,
-                                             int first, int max_iters, float lm_lambda0,
-                                             float lm_up, float lm_down, float step_eps,
-                                             cudaStream_t stream) {
-  gn_update_kernel<<<1, kState, 0, stream>>>(row, T_in, state, first, max_iters, lm_lambda0,
-                                             lm_up, lm_down, step_eps);
+// The M-step from the all-reduced row (80,) f64 and the end of the EM
+// pass: state (64,) as semicp_gn_solve's (T, H, cost, step, lambda,
+// passes run, em_step against T_in, n_corr = row[73]); moved (3,n) and rc
+// (6,n) of z (3,n) and cov6 (6,n) at the final T. terms (2, 28, 10) int32
+// on the device: the term table of each GN pass's 28 sums (gauss_newton.py
+// `_term_table`). T_in (4,4) must not lie in state. blocks from
+// semicp_gn_dist_plan. One launch on `stream`.
+extern "C" cudaError_t semicp_gn_dist_tail(const double* row, const int* terms, const float* T_in,
+                                           const float* z, const float* cov6, int n, int blocks,
+                                           int max_iters, float lm_lambda0, float lm_up,
+                                           float lm_down, float step_eps, float* state,
+                                           float* moved, float* rc, cudaStream_t stream) {
+  TailArgs d{row,        terms, T_in,    z,        cov6,  n,     max_iters,
+             lm_lambda0, lm_up, lm_down, step_eps, state, moved, rc};
+  gn_dist_tail_kernel<<<blocks, kBlock, 0, stream>>>(d);
   return cudaGetLastError();
 }

@@ -15,8 +15,9 @@ cost count) launches with no counter. The data-dependent kernels leave a
 device tensor in `WALKED`: the walks (K1, K2, K5, K6) the chunks they
 walked, each chunk being 32 x 32 query-target pairs, and G1 its state, whose
 element 55 counts the GN passes that ran (G1's distributed mode too, whose
-counter `gn_dist` counts a GN pass, its two launches and the all-reduce
-between them); reading one syncs, so only a measurement does.
+counter `gn_dist` counts an M-step: its two launches, the moments and the
+tail, and the all-reduce between them); reading one syncs, so only a
+measurement does.
 """
 
 from __future__ import annotations
@@ -75,13 +76,13 @@ _SIGNATURES = {
     # lm_lambda0, lm_up, lm_down, step_eps, state, partials, moved, rc, stream
     "semicp_gn_solve": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
                         _F, _P, _P, _P, _P, _P),
-    # n, out (2,) int32: blocks, share
+    # n, out (3,) int32: moments blocks, share, tail blocks
     "semicp_gn_dist_plan": (_I, ctypes.POINTER(ctypes.c_int)),
-    # z, a6, b3, c, wsum, T_in, state, n, blocks, share, first, max_iters, step_eps,
-    # partials, row, stream
-    "semicp_gn_dist_reduce": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P),
-    # row, T_in, state, first, max_iters, lm_lambda0, lm_up, lm_down, step_eps, stream
-    "semicp_gn_dist_update": (_P, _P, _P, _I, _I, _F, _F, _F, _F, _P),
+    # z, a6, b3, c, wsum, n, blocks, share, partials, row, stream
+    "semicp_gn_dist_moments": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
+    # row, terms, T_in, z, cov6, n, blocks, max_iters, lm_lambda0, lm_up, lm_down, step_eps,
+    # state, moved, rc, stream
+    "semicp_gn_dist_tail": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P, _P),
 }
 
 _lib = None

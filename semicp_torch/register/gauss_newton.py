@@ -31,16 +31,25 @@ pass; dist/align_dist.py runs it):
   of each pass's system; `em_tail_dist_plain` adds em_step, the
   all-reduced n_corr and the local moved and rc. They are the CPU path and
   the reference of:
-* `em_tail_dist` on CUDA: `gn_solve_dist` runs max(gn.max_iters, 1) GN
-  passes of G1's distributed entries, each a reduce launch (the pass's 29
-  sums over this rank's points, added in block order), the all-reduce of
-  that row and an update launch (the solve, se3_exp, the LM schedule and
-  em_step on G1's state), with no host read; then `move_source`.
+* `em_tail_dist` on CUDA (G1d). The E-step's planes are frozen for the
+  M-step, and a pass's 28 sums are polynomials of degree <= 2 in p = T z,
+  so 74 pose-independent sums of the points (`gn_moments_plain`: sums of
+  a_k (z,1)(z,1)^T, b_j (z,1), c and wsum, in float64 because the cost
+  cancels c against b.p and p.A p) fix every pass's system exactly.
+  One M-step is a moments launch, one all-reduce of that row and a tail
+  launch that runs every GN pass from the row (each pass's sums in
+  float64 at the pass's pose, rounded to f32, then G1's f32 update),
+  em_step, n_corr and this rank's moved and rc: 2 launches and 1
+  collective, with no host read. `normal_equations_from_moments` and
+  `gn_solve_moments_plain` are the float64 mirrors of the tail kernel's
+  algebra and loop, for the tests and chip_smoke.py; nothing on the path
+  calls them.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -49,15 +58,50 @@ from semicp_torch import kernels
 from semicp_torch.config import GNConfig
 from semicp_torch.geom import sym3
 from semicp_torch.geom.se3 import se3_exp, se3_inverse, se3_log
-from semicp_torch.register.residuals import normal_equations_collapsed
+from semicp_torch.register.residuals import _assemble, normal_equations_collapsed
 
 # G1's state (csrc/gn_solve.cu), GN_STATE floats: T at S_T (4,4), H at S_H
 # (6,6), then cost, GN step, lambda, passes run, em_step and n_corr
 GN_STATE = 64
 S_T, S_H, S_COST, S_STEP, S_PASSES, S_EM_STEP, S_N_CORR = 0, 16, 52, 53, 55, 56, 57
 GN_ROW = 32     # floats of a block's partial row of G1's sums
+# G1d's moment row (`gn_moments_plain`), float64: 74 sums, then zeros
+GN_MOM = 80
+# the entries (m, l) of the symmetric (z,1)(z,1)^T in the row's order
+_SYM4 = ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2), (0, 3), (1, 3), (2, 3), (3, 3))
+# Each of the 28 sums (residuals.py's layout) as (index, coefficient)
+# terms over the moments at the pass's pose (`_pose_moments`): index
+# 10 k + s is sum a_k pt_m pt_l with pt = (T z, 1) (a_k in sym3 order
+# a00 a11 a22 a01 a02 a12, s over _SYM4: xx yy zz xy xz yz x y z 1);
+# 60 + 4 j + m is sum b_j pt_m; 72 is sum c. E.g. sum 6, B_00 = a01 pz -
+# a02 py, is F[38] - F[47]. The tail kernel reads this table, not a copy of
+# it (`_term_table`).
+_MOMENT_TERMS = (
+    ((9, 1),), ((19, 1),), ((29, 1),), ((39, 1),), ((49, 1),), ((59, 1),),     # A
+    ((38, 1), (47, -1)), ((8, -1), (46, 1)), ((7, 1), (36, -1)),              # B
+    ((18, 1), (57, -1)), ((38, -1), (56, 1)), ((16, -1), (37, 1)),
+    ((27, -1), (58, 1)), ((26, 1), (48, -1)), ((47, 1), (56, -1)),
+    ((12, 1), (21, 1), (55, -2)),                                             # C
+    ((23, -1), (32, -1), (45, 1), (54, 1)),
+    ((14, -1), (35, 1), (41, -1), (53, 1)),
+    ((2, 1), (20, 1), (44, -2)),
+    ((5, -1), (34, 1), (43, 1), (50, -1)),
+    ((1, 1), (10, 1), (33, -2)),
+    ((6, -1), (37, -1), (48, -1), (63, 1)),                                   # u
+    ((17, -1), (36, -1), (58, -1), (67, 1)),
+    ((28, -1), (46, -1), (57, -1), (71, 1)),
+    ((15, -1), (25, 1), (34, -1), (43, 1), (51, 1), (52, -1), (66, 1), (69, -1)),  # u x p
+    ((4, 1), (24, -1), (35, 1), (40, -1), (42, 1), (53, -1), (62, -1), (68, 1)),
+    ((3, -1), (13, 1), (30, 1), (31, -1), (45, -1), (54, 1), (61, 1), (64, -1)),
+    ((0, 1), (11, 1), (22, 1), (33, 2), (44, 2), (55, 2), (60, -2), (65, -2), (70, -2),  # cost
+     (72, 1)),
+)
 
-# (device index, N, stage) -> (blocks, share, smem bytes, staged, partials)
+# the most terms of one of the 28 sums (csrc/gn_solve.cu kTerms)
+TERM_WIDTH = 10
+
+# (device index, N, stage) -> G1's (blocks, share, smem bytes, staged,
+# partials); ("dist", device index, N) -> G1d's `dist_plan`
 _PLANS: dict = {}
 
 
@@ -81,26 +125,20 @@ def apply_T_planar(T, z):
     return px, py, pz
 
 
-def gn_solve_plain(T0, src_planes, a6, b3, c, cfg: GNConfig, reduce=None):
-    """Minimize sum_i c_i - 2 b_i.p_i + p_i.A_i p_i over T, p_i = T z_i.
-
-    `reduce(H, g, cost)`, where given, maps each pass's system over these
-    points to the system over all of them (`gn_solve_dist_plain`).
-    Returns (T, final_cost, last_step_norm, H (6,6) at the final
-    iterate), all tensors on T0's device.
-    """
+def _lm_loop(T0, system, cfg: GNConfig):
+    """The JAX `while_loop` of `gn_solve` as a fixed loop of cfg.max_iters
+    masked passes; `system(T)` gives a pass's (H, g, cost) at T. Returns
+    (T, cost, step, H, passes run)."""
     dev, dt = T0.device, T0.dtype
     T = T0
     lam = torch.full((), cfg.lm_lambda0, dtype=dt, device=dev)
     cost = torch.full((), -1.0, dtype=dt, device=dev)
     step = torch.full((), float("inf"), dtype=dt, device=dev)
     H = torch.zeros((6, 6), dtype=dt, device=dev)
+    passes = torch.zeros((), dtype=torch.int32, device=dev)
     for _ in range(cfg.max_iters):
         active = step > cfg.step_eps
-        p = apply_T_planar(T, src_planes)
-        H_i, g, cost_i = normal_equations_collapsed(a6, b3, c, p)
-        if reduce is not None:
-            H_i, g, cost_i = reduce(H_i, g, cost_i)
+        H_i, g, cost_i = system(T)
         damped = H_i + lam * torch.diag(torch.diagonal(H_i))
         delta = torch.linalg.solve_ex(damped, -g)[0]
         T_new = se3_exp(delta) @ T
@@ -114,7 +152,24 @@ def gn_solve_plain(T0, src_planes, a6, b3, c, cfg: GNConfig, reduce=None):
         cost = torch.where(active, cost_i, cost)
         H = torch.where(active, H_i, H)
         step = torch.where(active, torch.linalg.vector_norm(delta), step)
-    return T, cost, step, H
+        passes = passes + active.to(torch.int32)
+    return T, cost, step, H, passes
+
+
+def gn_solve_plain(T0, src_planes, a6, b3, c, cfg: GNConfig, reduce=None):
+    """Minimize sum_i c_i - 2 b_i.p_i + p_i.A_i p_i over T, p_i = T z_i.
+
+    `reduce(H, g, cost)`, where given, maps each pass's system over these
+    points to the system over all of them (`gn_solve_dist_plain`).
+    Returns (T, final_cost, last_step_norm, H (6,6) at the final
+    iterate), all tensors on T0's device.
+    """
+
+    def system(T):
+        sums = normal_equations_collapsed(a6, b3, c, apply_T_planar(T, src_planes))
+        return sums if reduce is None else reduce(*sums)
+
+    return _lm_loop(T0, system, cfg)[:4]
 
 
 def move_source_plain(T, z, cov6):
@@ -159,6 +214,12 @@ def _check_source(T, z, cov6):
     for t, name, shape in ((z, "z", (3, n)), (cov6, "cov6", (6, n)), (T, "T", (4, 4))):
         kernels.check(t, name, torch.float32, shape)
     return n
+
+
+def _check_planes(n, a6, b3, c, wsum):
+    for t, name, shape in ((a6, "a6", (6, n)), (b3, "b3", (3, n)), (c, "c", (n,)),
+                           (wsum, "wsum", (n,))):
+        kernels.check(t, name, torch.float32, shape)
 
 
 class TailOut:
@@ -217,9 +278,7 @@ def em_tail(T_in, z, cov6, a6, b3, c, wsum, cfg: GNConfig, out: TailOut | None =
         return em_tail_plain(T_in, z, cov6, a6, b3, c, wsum, cfg)
     dev = T_in.device
     n = _check_source(T_in, z, cov6)
-    for t, name, shape in ((a6, "a6", (6, n)), (b3, "b3", (3, n)), (c, "c", (n,)),
-                           (wsum, "wsum", (n,))):
-        kernels.check(t, name, torch.float32, shape)
+    _check_planes(n, a6, b3, c, wsum)
     blocks, share, smem, staged, partials = launch_plan(dev, n, stage)
     out = out or tail_outputs(n, dev)[0]
     kernels.launch("semicp_gn_solve", "gn_solve", dev, z.data_ptr(), cov6.data_ptr(),
@@ -254,62 +313,131 @@ def em_tail_dist_plain(T_in, z, cov6, a6, b3, c, wsum, cfg: GNConfig, mesh) -> E
     return EMTail(T, cost, step, H, em_step, n_corr, moved, rc)
 
 
+def gn_moments_plain(z, a6, b3, c, wsum) -> torch.Tensor:
+    """G1d's moment row of these points, (GN_MOM,) float64: with zt = (z, 1),
+    [10 k + s] = sum a_k zt_m zt_l for a_k in sym3 order and (m, l) =
+    _SYM4[s]; [60 + 4 j + m] = sum b_j zt_m; [72] = sum c; [73] = sum
+    wsum; zeros after. The rows of disjoint point sets add up to the row
+    of their union."""
+    f64 = torch.float64
+    n = z.shape[1]
+    zt = torch.cat([z.to(f64), torch.ones((1, n), dtype=f64, device=z.device)])
+    zz = torch.stack([zt[m] * zt[l] for m, l in _SYM4])                     # (10, n)
+    row = torch.zeros(GN_MOM, dtype=f64, device=z.device)
+    row[:60] = torch.einsum("kn,sn->ks", torch.stack(tuple(a6)).to(f64), zz).reshape(60)
+    row[60:72] = torch.einsum("jn,mn->jm", torch.stack(tuple(b3)).to(f64), zt).reshape(12)
+    row[72] = torch.sum(c.to(f64))
+    row[73] = torch.sum(wsum.to(f64))
+    return row
+
+
+def _pose_moments(m, T) -> torch.Tensor:
+    """The moments of row m at pose T, (73,) float64: zt replaced by pt =
+    (T z, 1), so [10 k + s] = sum a_k pt_m pt_l, [60 + 4 j + m] = sum b_j
+    pt_m and [72] = sum c. Each is a 4x4 product of T's rows with the row's
+    moments, as the kernel forms them."""
+    f64 = torch.float64
+    Tt = torch.zeros((4, 4), dtype=f64, device=m.device)
+    Tt[:3] = T[:3].to(f64)
+    Tt[3, 3] = 1.0
+    idx = torch.tensor(_SYM4, device=m.device)
+    M = torch.zeros((6, 4, 4), dtype=f64, device=m.device)
+    M[:, idx[:, 0], idx[:, 1]] = m[:60].reshape(6, 10)
+    M[:, idx[:, 1], idx[:, 0]] = m[:60].reshape(6, 10)
+    P = Tt @ M @ Tt.T
+    return torch.cat([P[:, idx[:, 0], idx[:, 1]].reshape(60),
+                      (m[60:72].reshape(3, 4) @ Tt.T).reshape(12), m[72:73]])
+
+
+@functools.lru_cache(maxsize=None)
+def _term_matrix(device: torch.device) -> torch.Tensor:
+    """_MOMENT_TERMS as a (28, 73) float64 matrix on device, made once."""
+    L = torch.zeros((28, 73), dtype=torch.float64)
+    for s, terms in enumerate(_MOMENT_TERMS):
+        for i, coef in terms:
+            L[s, i] = coef
+    return L.to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _term_table(device: torch.device) -> torch.Tensor:
+    """_MOMENT_TERMS as the tail kernel reads it, (2, 28, TERM_WIDTH) int32
+    on device, made once: [0] each sum's moment indices, -1 after its
+    last; [1] their coefficients."""
+    table = torch.zeros((2, 28, TERM_WIDTH), dtype=torch.int32)
+    table[0] = -1
+    for s, terms in enumerate(_MOMENT_TERMS):
+        for j, (i, coef) in enumerate(terms):
+            table[0, s, j], table[1, s, j] = i, coef
+    return table.to(device)
+
+
+def normal_equations_from_moments(m, T):
+    """The GN system (H (6,6), g (6,), cost ()) of the points whose moment
+    row is m (`gn_moments_plain`, summed over ranks), at pose T, in
+    float64: `normal_equations_collapsed` at p = T z, up to rounding."""
+    sums = _term_matrix(m.device) @ _pose_moments(m, T)
+    return _assemble(sums[:, None])
+
+
+def gn_solve_moments_plain(T0, m, cfg: GNConfig):
+    """G1d's M-step on its float64 mirror: `gn_solve_plain`'s loop in T0's
+    dtype whose every pass takes its system from the moment row m at the
+    pass's pose (`normal_equations_from_moments`, rounded to T0's dtype),
+    as the tail kernel does. Returns (T, cost, step, H, passes run)."""
+
+    def system(T):
+        return tuple(x.to(T.dtype) for x in normal_equations_from_moments(m, T))
+
+    return _lm_loop(T0, system, cfg)
+
+
 def dist_plan(dev: torch.device, n: int):
-    """The distributed reduce's launch plan for n points on dev, (blocks,
-    points a block), and its scratch: the partial rows (blocks, 32) and
-    the row (32,) the group all-reduces; made once and kept (launches and
-    collectives run in stream order, so calls share them)."""
+    """G1d's launch plan for n points on dev, (moments blocks, points a
+    moments block, tail blocks), and its scratch: the moments kernel's
+    partial rows (blocks, GN_MOM) and the row (GN_MOM,) the group
+    all-reduces, float64; made once and kept (launches and collectives run
+    in stream order, so calls share them)."""
     key = ("dist", dev.index, n)
     plan = _PLANS.get(key)
     if plan is None:
-        out = (ctypes.c_int * 2)()
+        out = (ctypes.c_int * 3)()
         with torch.cuda.device(dev):
             err = kernels.library().semicp_gn_dist_plan(n, out)
         if err != 0:
             raise RuntimeError(f"semicp_gn_dist_plan: CUDA error {err}")
-        blocks, share = out
-        partials = torch.empty((blocks, GN_ROW), dtype=torch.float32, device=dev)
-        row = torch.empty((GN_ROW,), dtype=torch.float32, device=dev)
-        plan = _PLANS[key] = (blocks, share, partials, row)
+        blocks, share, tail_blocks = out
+        partials = torch.empty((blocks, GN_MOM), dtype=torch.float64, device=dev)
+        row = torch.empty((GN_MOM,), dtype=torch.float64, device=dev)
+        plan = _PLANS[key] = (blocks, share, tail_blocks, partials, row)
     return plan
-
-
-def gn_solve_dist(T_in, z, a6, b3, c, wsum, cfg: GNConfig, mesh, out: TailOut) -> TailOut:
-    """`gn_solve_dist_plain`'s M-step by G1's distributed entries (CUDA
-    tensors): max(cfg.max_iters, 1) GN passes of reduce, all-reduce and
-    update into out's state, which must not hold T_in. Each pass counts
-    one `gn_dist` launch. The state afterwards holds T, H, cost, step,
-    the passes run, em_step and the all-reduced n_corr (`TailOut.tail`,
-    whose moved and rc this leaves as they were)."""
-    dev = T_in.device
-    n = z.shape[1]
-    for t, name, shape in ((T_in, "T_in", (4, 4)), (z, "z", (3, n)), (a6, "a6", (6, n)),
-                           (b3, "b3", (3, n)), (c, "c", (n,)), (wsum, "wsum", (n,))):
-        kernels.check(t, name, torch.float32, shape)
-    blocks, share, partials, row = dist_plan(dev, n)
-    for p in range(max(cfg.max_iters, 1)):
-        first = int(p == 0)
-        kernels.launch("semicp_gn_dist_reduce", None, dev, z.data_ptr(), a6.data_ptr(),
-                       b3.data_ptr(), c.data_ptr(), wsum.data_ptr(), T_in.data_ptr(),
-                       out.ptrs[0], n, blocks, share, first, cfg.max_iters, cfg.step_eps,
-                       partials.data_ptr(), row.data_ptr())
-        mesh.all_reduce(row)
-        kernels.launch("semicp_gn_dist_update", "gn_dist", dev, row.data_ptr(),
-                       T_in.data_ptr(), out.ptrs[0], first, cfg.max_iters, cfg.lm_lambda0,
-                       cfg.lm_up, cfg.lm_down, cfg.step_eps)
-    kernels.WALKED["gn_dist"] = out.state
-    return out
 
 
 def em_tail_dist(T_in, z, cov6, a6, b3, c, wsum, cfg: GNConfig, mesh,
                  out: TailOut | None = None) -> EMTail:
-    """`em_tail_dist_plain`'s result: by it on CPU tensors; on CUDA by
-    `gn_solve_dist`, then G1 with no GN pass at the new pose (this rank's
-    moved and rc), all into out's buffers (`tail_outputs`; new ones where
-    not given), whose state must not hold T_in."""
+    """`em_tail_dist_plain`'s result: by it on CPU tensors; on CUDA by G1d,
+    into out's buffers (`tail_outputs`; new ones where not given), whose
+    state must not hold T_in: the moments kernel (this rank's moment row,
+    `gn_moments_plain`), the group's all-reduce of that row, and the tail
+    kernel (every GN pass from the row, then em_step, n_corr, and this
+    rank's moved and rc at the new pose). One `gn_dist` launch counted a
+    call; the state is left in `kernels.WALKED["gn_dist"]` (element 55
+    counts the GN passes that ran) and the all-reduced row in the plan's
+    `row` (`dist_plan`)."""
     if not T_in.is_cuda:
         return em_tail_dist_plain(T_in, z, cov6, a6, b3, c, wsum, cfg, mesh)
-    out = out or tail_outputs(z.shape[1], T_in.device)[0]
-    gn_solve_dist(T_in, z, a6, b3, c, wsum, cfg, mesh, out)
-    move_source(out.tail.T, z, cov6, out)
+    dev = T_in.device
+    n = _check_source(T_in, z, cov6)
+    _check_planes(n, a6, b3, c, wsum)
+    blocks, share, tail_blocks, partials, row = dist_plan(dev, n)
+    out = out or tail_outputs(n, dev)[0]
+    kernels.launch("semicp_gn_dist_moments", None, dev, z.data_ptr(), a6.data_ptr(),
+                   b3.data_ptr(), c.data_ptr(), wsum.data_ptr(), n, blocks, share,
+                   partials.data_ptr(), row.data_ptr())
+    mesh.all_reduce(row)
+    kernels.launch("semicp_gn_dist_tail", "gn_dist", dev, row.data_ptr(),
+                   _term_table(dev).data_ptr(), T_in.data_ptr(), z.data_ptr(),
+                   cov6.data_ptr(), n, tail_blocks, cfg.max_iters,
+                   cfg.lm_lambda0, cfg.lm_up, cfg.lm_down, cfg.step_eps, *out.ptrs)
+    kernels.WALKED["gn_dist"] = out.state
     return out.tail

@@ -11,7 +11,10 @@ Tolerances:
 - Distributed align: T within 1e-4 of JAX's and of the port's single-device
   align, with the same EM iterations (tests/test_map_ba.py's pair).
 - Distributed GN: T within 1e-5, H within 1e-4 of its largest entry, as
-  tests/test_torch_register.py holds the one-device M-step.
+  tests/test_torch_register.py holds the one-device M-step; G1d's moment
+  M-step (its float64 mirror over the ranks) T within 1e-5, its
+  all-reduced row within 1e-12 relative of the whole planes' (float64
+  sums in another order).
 - A batch over the mesh equals serial aligns to the bit (the gather adds
   zeros), and within 1e-4 the JAX package's aligns.
 """
@@ -38,6 +41,7 @@ from semicp_torch.cli.run_slam import main as t_slam_main
 from semicp_torch.convert import cloud_from_numpy
 from semicp_torch.dist import shard_batch
 from semicp_torch.dist.mesh import Mesh, shard_bounds
+from semicp_torch.register.gauss_newton import gn_moments_plain
 
 K_RING, N_RING, Q_RING, GATE = 4, 2048, 1024, 2.0
 ALIGN = ["--cloud.n_pad=2048", "--cloud.num_classes=5", "--em.max_iters=12"]
@@ -207,6 +211,24 @@ def test_gn_solve_dist_plain_matches_jax(dist_run):
         assert bool(o["tail_equal"])
         np.testing.assert_allclose(float(o["tail_n_corr"]), inp["gn_wsum"].sum(dtype=np.float64),
                                    rtol=1e-5)
+
+
+def test_gn_moments_dist_matches_jax(dist_run):
+    """G1d's M-step on its float64 mirror over W ranks (each rank's moment
+    row of its columns, all-reduced over gloo, then every GN pass from the
+    row) against the per-pass all-reduced gn_solve_dist_plain and JAX's
+    gn_solve(axis_name=...): T within 1e-5, the same row and T on every
+    rank, and the row equal to the whole planes' within 1e-12 relative."""
+    w, inp, ref, outs, _ = dist_run
+    whole = gn_moments_plain(*(torch.from_numpy(inp[f"gn_{f}"]) for f in
+                               ("z", "a6", "b3", "c", "wsum"))).numpy()
+    for o in outs:
+        np.testing.assert_array_equal(o["mom_row"], outs[0]["mom_row"])
+        np.testing.assert_array_equal(o["mom_T"], outs[0]["mom_T"])
+        assert int(o["mom_passes"]) == int(outs[0]["mom_passes"])
+        np.testing.assert_allclose(o["mom_T"], o["gn_T"], atol=1e-5)
+        np.testing.assert_allclose(o["mom_T"], ref["gn"][0], atol=1e-5)
+    np.testing.assert_allclose(outs[0]["mom_row"], whole, rtol=1e-12, atol=0)
 
 
 def test_two_process_full_program(dist_run):

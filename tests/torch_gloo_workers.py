@@ -85,14 +85,20 @@ def _cols(a, mesh):
 
 def task_dist(mesh, inp) -> dict:
     """The ring NN (three engines), the distributed align (two engines),
-    the distributed GN and its tail, and a batch of pairs over the mesh."""
+    the distributed GN and its tail, G1d's moment M-step, and a batch of
+    pairs over the mesh."""
     from semicp_torch.cloud import make_cloud, preprocess_cloud
     from semicp_torch.config import GNConfig
     from semicp_torch.dist.align_dist import make_dist_align_fn
     from semicp_torch.dist.batch import batched_align
     from semicp_torch.dist.ring_corr import make_ring_nn
-    from semicp_torch.register.gauss_newton import em_tail_dist, em_tail_dist_plain
-    from semicp_torch.register.gauss_newton import gn_solve_dist_plain
+    from semicp_torch.register.gauss_newton import (
+        em_tail_dist,
+        em_tail_dist_plain,
+        gn_moments_plain,
+        gn_solve_dist_plain,
+        gn_solve_moments_plain,
+    )
 
     out = {}
     K, gate = int(inp["ring_k"]), float(inp["ring_gate"])
@@ -119,6 +125,11 @@ def task_dist(mesh, inp) -> dict:
     ref = em_tail_dist_plain(T0, z, cov6, a6, b3, c, wsum, gcfg, mesh)
     out["tail_equal"] = all(bool(torch.equal(a, b)) for a, b in zip(tail, ref))
     out["tail_n_corr"], out["tail_em_step"] = tail.n_corr, tail.em_step
+    # G1d's M-step on its float64 mirror: this rank's moment row,
+    # all-reduced, then every GN pass from the row
+    row = mesh.all_reduce(gn_moments_plain(z, a6, b3, c, wsum))
+    out["mom_row"] = row
+    out["mom_T"], _, _, _, out["mom_passes"] = gn_solve_moments_plain(T0, row, gcfg)
 
     # a batch of pairs over the mesh (the shares differ where the world
     # does not divide the batch)
