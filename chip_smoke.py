@@ -56,14 +56,20 @@ Phases (any failure raises and exits non-zero):
    must recover the offset that GICP cannot observe;
 10. keyframe SLAM through semicp_torch.cli.run_slam: (a) a 48-frame
    closed loop of 120000-point scans at n_pad 131072 with a yaw drift,
-   with and without loop closure (loop edges, ATE, ms per frame, phase
-   means, launches and host syncs per frame, ms per loop verification
-   and K2's walk at the verifier's gate against its mirror); (b) the same
-   loop scan-to-map; (c) a 24-frame sequence of 1900-point scans on the
-   card against the CPU, with the closest decision margins; (d) a crash
-   with checkpoints and a resume; (e) pose-graph optimisation at 1024
-   poses and 4096 edges; (f) kNN covariances (cov.method=knn) on the
-   bench pair;
+   with and without loop closure (loop edges, ATE, ms per frame within
+   PERF.md's 100 ms, the submap's and the PGO's means, launches and host
+   syncs per frame, ms per loop verification and K2's walk at the
+   verifier's gate against its mirror); (b) the same loop scan-to-map
+   (100 ms a frame), and its first submap rebuild and its first of five
+   keyframes (5 x 120000 points) on the card against the host's numpy
+   fusion (equal counts and labels, points within a float32 ulp; one host
+   read a rebuild); (c) a 24-frame
+   sequence of 1900-point scans on the card against the CPU, with the
+   closest decision margins; (d) a crash with checkpoints and a resume;
+   (e) pose-graph optimisation, its LM iterations replayed as a CUDA
+   graph, against the eager loop (poses within 1e-5, ms and host launches
+   a call before and after) at 1024 poses and 4096 edges and at 32 poses
+   and 48 edges; (f) kNN covariances (cov.method=knn) on the bench pair;
 11. the last two configurations, over the process group's mesh (an NCCL
    group of one on one card): (a) plain run_batch, 4 sequences x 12
    frames of 120000-point scans at n_pad 131072 preprocessed in raw
@@ -75,23 +81,32 @@ Phases (any failure raises and exits non-zero):
    independent run_slam runs (keyframes and loop edges equal, ATE within
    2e-2 m); (c) run_slam --dist on that loop (NCCL, ATE, the map BA's
    landmarks, observations and its matching and solve times, ms per
-   frame, launches); (d) its last scan-to-map pair through the
-   distributed align against make_align_fn (T), and against
-   make_align_fn with G1d as its M-step (T, iterations), with one host
-   sync per EM pass, device kernels, and ms an EM pass against one
-   device; (e) G1d, G1's distributed mode (a
-   moments launch, one all-reduce of its float64 row, a tail launch an
-   M-step), against em_tail_dist_plain in f32 and in float64, G1 and its
-   float64 mirror on the bench planes and at N = 4097 (the row within
-   1e-9, T within 1e-5, the same GN passes as G1, the cost within 1e-6 of
-   float64, moved and rc bit-equal, two calls bit-equal), timed, with its
-   bound and its device kernels a call (G1d's 2, and NCCL's);
-   (f) the Schur BA at 32 keyframes and 8192 landmarks, the card against
-   the CPU, ms a BA iteration.
+   frame within 100 ms, launches); (d) every scan-to-map pair of that run
+   through the distributed align against make_align_fn (the trip rule of
+   semicp_torch.eval.pairs.trip_parity: T within 1e-4, or counts apart
+   and T within 1e-4 at the smaller count, with the stopping margins
+   printed) and against make_align_fn with G1d as its M-step
+   (iterations and T equal to the bit); on the last pair one host sync
+   per EM pass, device kernels, and ms an EM pass against one device;
+   (e) G1d, G1's distributed mode (a moments launch, one all-reduce of
+   its float64 row, a tail launch an M-step), against its plain version
+   (em_tail_dist_moments_plain, the CPU path), the JAX package's
+   arithmetic (em_tail_dist_plain) in f32 and in float64 and G1 on the
+   bench planes and at N = 4097 (the row within 1e-9, T within 1e-5, the
+   same GN passes as G1, the cost within 1e-6 of float64, moved and rc
+   bit-equal, two calls bit-equal), timed, with its bound and its device
+   kernels a call (G1d's 2, and NCCL's); (f) the Schur BA at 32
+   keyframes and 8192 landmarks, the card against the CPU, ms a BA
+   iteration;
+12. the port's scripts as function calls: scripts/torch_ring_bench.py at
+   its full size (2^19 map points, 2^17 queries, K = 20; K4 against K2
+   within the gate), scripts/torch_ablation_bench.py's full sweep and
+   scripts/torch_scaling_bench.py at world 1 with 120000 points and 4
+   pairs; their JSON fields, and K4, K2, K3, K5 and G1 launched.
 
 It prints one JSON line of the SLAM phase's results, one of phase 11's,
-one of the kernels' results, the card's name and power limit, and last
-the line
+one of phase 12's, one of the kernels' results, the card's name and
+power limit, and last the line
 {"ok": true, "device": {...}}.
 Imports torch, numpy and semicp_torch only.
 """
@@ -103,7 +118,7 @@ import contextlib
 import io
 import json
 import os
-import subprocess
+import sys
 import tempfile
 import time
 import warnings
@@ -132,8 +147,10 @@ from semicp_torch.corr.nn_sparse import (
     prepare_sparse,
 )
 from semicp_torch.cli import run_batch, run_odometry, run_slam
+from semicp_torch.data.kitti import voxel_keep
 from semicp_torch.data import (
     SEMANTICKITTI_REMAP,
+    corridor_scene,
     load_kitti_poses,
     make_pair,
     make_scene,
@@ -142,6 +159,7 @@ from semicp_torch.data import (
     render_scan,
     save_kitti_poses,
 )
+from semicp_torch.eval.pairs import pose_errors, trip_parity
 from semicp_torch.register import align_gicp, em_icp
 from semicp_torch.register.em_icp import (
     _estep,
@@ -158,6 +176,7 @@ from semicp_torch.register.gauss_newton import (
     dist_plan,
     em_tail,
     em_tail_dist,
+    em_tail_dist_moments_plain,
     em_tail_dist_plain,
     em_tail_plain,
     gn_moments_plain,
@@ -173,6 +192,8 @@ from semicp_torch.register.fused import estep_fused_plain, estep_sparse_fused
 from semicp_torch.slam import pose_graph, schur
 from semicp_torch.slam.keyframes import KeyframeStore
 from semicp_torch.slam.loop_closure import LoopVerifier
+from semicp_torch.slam.submap import build_submap, submap_points, submap_points_plain
+from semicp_torch.utils.metrics import card_line
 
 N_POINTS, N_CLASSES, N_PAD = 120000, 20, 131072
 DELTA = np.array([0.5, -0.2, 0.05, 0.01, -0.02, 0.04])
@@ -207,6 +228,9 @@ SLAM_SMALL = ["--synthetic", str(SLAM_SMALL_FRAMES), "--n-points", str(SMALL_POI
               f"--cloud.n_pad={SMALL_PAD}", f"--cloud.num_classes={N_CLASSES}",
               "--em.max_iters=12", "--slam.keyframe_trans=1.5", "--slam.lc_min_gap=4",
               "--slam.lc_max_dist=7.0"]
+# PERF.md §2's limit of a SLAM frame (the 10 Hz sensor period), held in
+# phases 10 (a), (b) and 11 (c) on the JSONL clock
+FRAME_LIMIT_MS = 100.0
 # (e): pose-graph optimisation at ROADMAP's scale (a 6144-wide system), and
 # at the size of phase 10 (a)'s graph
 PGO_POSES, PGO_EDGES, PGO_ITERS = 1024, 4096, 20
@@ -258,13 +282,6 @@ FLOP_MOM64_POINT = 143
 # torch ops, before G1, and when G1 still took a launch a GN pass and the
 # EM pass's tail ran as torch ops (PERF.md)
 TORCH_MSTEP_SCAN_KERNELS, G1_PER_PASS_SCAN_KERNELS = 10441, 1555
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -350,13 +367,6 @@ def host_syncs(fn):
     sites = collections.Counter(f"{os.path.relpath(w.filename)}:{w.lineno}"
                                 for w in caught if "synchroniz" in str(w.message))
     return out, sites
-
-
-def pose_errors(T, T_ref):
-    err = np.asarray(T, np.float64) @ np.linalg.inv(np.asarray(T_ref, np.float64))
-    terr = float(np.linalg.norm(err[:3, 3]))
-    rerr = float(np.arccos(np.clip((np.trace(err[:3, :3]) - 1) / 2, -1, 1)))
-    return terr, rerr
 
 
 def cov_from_moments(m):
@@ -1244,21 +1254,6 @@ def phase8(dev, card):
     return launches, small_launches
 
 
-def corridor_scene(rng, n):
-    """tests/test_register.py's corridor: ground + two walls, all parallel
-    to x, so the only x information is the label boundary at x = 0."""
-    g = np.stack([rng.uniform(-10, 10, n), rng.uniform(-4, 4, n),
-                  rng.normal(n) * 0 + rng.normal(size=n) * 0.01], -1)
-    w1 = np.stack([rng.uniform(-10, 10, n // 2), np.full(n // 2, -4.0)
-                   + rng.normal(size=n // 2) * 0.01, rng.uniform(0, 3, n // 2)], -1)
-    w2 = np.stack([rng.uniform(-10, 10, n // 2), np.full(n // 2, 4.0)
-                   + rng.normal(size=n // 2) * 0.01, rng.uniform(0, 3, n // 2)], -1)
-    xyz = np.concatenate([g, w1, w2]).astype(np.float32)
-    surf = np.concatenate([np.zeros(n), np.ones(n // 2), np.full(n // 2, 2)])
-    lab = (surf * 2 + (xyz[:, 0] > 0)).astype(np.int32)
-    return xyz, lab
-
-
 def phase9(src, tgt, T_gt, cfg, dev):
     """NDT's three variants on the preprocessed bench pair, then the
     corridor pair (semantic EM-ICP against GICP). Returns the launches."""
@@ -1497,11 +1492,12 @@ def phase10_loop(root: Path, card, results, dev):
           f"{out['keyframes']} keyframes, {out['edges']} edges ({out['loop_edges']} loop), ATE "
           f"{out['ate_rmse_m']:.4e} m with loop closure, {out_n['ate_rmse_m']:.4e} m without "
           f"({out_n['loop_edges']} loop edges); RPE {out['rpe_trans_m']:.3e} m")
-    print(f"phase 10 (a): steady {frame_ms(recs):.2f} ms per frame (JSONL clock) on {card}; "
-          f"PhaseTimer means (ms) { {k: round(v['mean_ms'], 3) for k, v in tm.items()} }; EM "
-          f"iterations per frame {np.mean(iters):.2f} ({iters}); launches per frame "
-          f"{per_frame}")
+    print(f"phase 10 (a): steady {frame_ms(recs):.2f} ms per frame (JSONL clock; limit "
+          f"{FRAME_LIMIT_MS:.0f} ms) on {card}; {phase_means(tm)}; PhaseTimer means (ms) "
+          f"{ {k: round(v['mean_ms'], 3) for k, v in tm.items()} }; EM iterations per frame "
+          f"{np.mean(iters):.2f} ({iters}); launches per frame {per_frame}")
     assert out["frames"] == SLAM_FRAMES and np.isfinite(P).all()
+    assert frame_ms(recs) <= FRAME_LIMIT_MS, f"phase 10 (a): {frame_ms(recs):.2f} ms a frame"
     assert out["loop_edges"] >= 1 and out_n["loop_edges"] == 0, (out, out_n)
     assert out["ate_rmse_m"] < 0.7 * out_n["ate_rmse_m"], (out["ate_rmse_m"], out_n["ate_rmse_m"])
     missing = [k for k in ("moments_sparse", "nn_sparse", "estep_reduce", "gn_solve")
@@ -1543,16 +1539,87 @@ def phase10_loop(root: Path, card, results, dev):
                      "max_syncs_beyond_flags": worst, "ms_per_verification": ms_ver,
                      "verify_gate": gate}}
 
-    out_m, P_m, recs_m = slam(root, "map", SLAM_LOOP + ["--scan-to-map"])
+    rebuilds = []
+    with recording_args(run_slam, "build_submap", rebuilds):
+        out_m, P_m, recs_m = slam(root, "map", SLAM_LOOP + ["--scan-to-map"])
     sm = out_m["timing"]["submap"]
-    print(f"phase 10 (b): scan-to-map: {frame_ms(recs_m):.2f} ms per frame, {sm['mean_ms']:.2f} "
-          f"ms per submap rebuild ({sm['count']}), ATE {out_m['ate_rmse_m']:.4e} m (tol 0.5), "
-          f"{out_m['keyframes']} keyframes, {out_m['loop_edges']} loop edges")
+    print(f"phase 10 (b): scan-to-map: {frame_ms(recs_m):.2f} ms per frame (limit "
+          f"{FRAME_LIMIT_MS:.0f} ms), {phase_means(out_m['timing'])} ({sm['count']} rebuilds), "
+          f"ATE {out_m['ate_rmse_m']:.4e} m (tol 0.5), {out_m['keyframes']} keyframes, "
+          f"{out_m['loop_edges']} loop edges")
     assert out_m["frames"] == SLAM_FRAMES and np.isfinite(P_m).all()
     assert out_m["ate_rmse_m"] < 0.5, out_m["ate_rmse_m"]
+    assert frame_ms(recs_m) <= FRAME_LIMIT_MS, f"phase 10 (b): {frame_ms(recs_m):.2f} ms a frame"
     summary["b"] = {"ms_per_frame": frame_ms(recs_m), "ms_per_submap": sm["mean_ms"],
-                    "ate_m": out_m["ate_rmse_m"], "loop_edges": out_m["loop_edges"]}
+                    "ms_per_pgo": out_m["timing"].get("pgo", {}).get("mean_ms"),
+                    "ate_m": out_m["ate_rmse_m"], "loop_edges": out_m["loop_edges"],
+                    "rebuild": [check_rebuild(call) for call in (rebuilds[0], next(
+                        c for c in rebuilds if len(c[0][0]) == cfg.slam.submap_keyframes))]}
     return summary, launches
+
+
+def recording_args(module, name, record):
+    """A context that wraps module.name to append each call's (args,
+    kwargs) to record (a list) and restores it on exit."""
+
+    @contextlib.contextmanager
+    def ctx():
+        orig = getattr(module, name)
+
+        def wrapped(*a, **k):
+            record.append((a, k))
+            return orig(*a, **k)
+
+        setattr(module, name, wrapped)
+        try:
+            yield record
+        finally:
+            setattr(module, name, orig)
+
+    return ctx()
+
+
+def phase_means(timing) -> str:
+    """The submap rebuild's and the PGO's mean ms (PhaseTimer) of a run."""
+    return ", ".join(f"{k} {timing[k]['mean_ms']:.2f} ms a call ({timing[k]['count']})"
+                     for k in ("submap", "pgo") if k in timing)
+
+
+def check_rebuild(call):
+    """The first submap rebuild of the scan-to-map run again: its points on
+    the card (`submap_points`) against the JAX package's numpy fusion
+    (`submap_points_plain`, the plain version) at full size (equal counts
+    and labels, points within one float32 ulp; the float64 products may
+    round apart in the last place), the host syncs of a rebuild (the count
+    the voxel grid keeps, read once; the final drain apart), and its ms."""
+    (kfs, poses, anchor, cfg), kw = call
+    kfs = list(kfs)
+    voxel, n_pad = kw["voxel"], cfg.cloud.n_pad
+    xyz, lab = submap_points(kfs, poses, anchor, voxel, n_pad)
+    pts, lab_p = submap_points_plain(kfs, poses, anchor, voxel, n_pad)
+    xyz, lab = xyz.cpu().numpy().T, lab.cpu().numpy()
+    count_ok = xyz.shape == pts.shape
+    ulps = np.abs(xyz.view(np.int32).astype(np.int64) - pts.view(np.int32).astype(np.int64)) \
+        if count_ok else None
+    n_diff = int((ulps > 0).any(axis=1).sum()) if count_ok else None
+    fused = sum(int(k.cloud.count) for k in kfs)
+    _, sites = host_syncs(lambda: build_submap(kfs, poses, anchor, cfg, voxel=voxel))
+    _, ms = host_ms(lambda: build_submap(kfs, poses, anchor, cfg, voxel=voxel))
+    _, ms_plain = host_ms(lambda: submap_points_plain(kfs, poses, anchor, voxel, n_pad))
+    read = source_lines(voxel_keep)
+    n_read = sum(n for site, n in sites.items() if site in read)
+    print(f"phase 10 (b): the first rebuild ({len(kfs)} keyframes, {fused} points, voxel {voxel} "
+          f"m, n_pad {n_pad}) on the card against the host's numpy fusion: counts "
+          f"{xyz.shape[0]} / {pts.shape[0]}, labels equal: {count_ok and np.array_equal(lab, lab_p)}"
+          f", points that differ {n_diff} (most {int(ulps.max()) if count_ok else None} float32 "
+          f"ulp); host syncs of a rebuild {sum(sites.values())} ({dict(sites)}; the count read "
+          f"{n_read}), plus the final drain; a rebuild {ms:.2f} ms, the host's fusion alone "
+          f"{ms_plain:.2f} ms")
+    assert count_ok and np.array_equal(lab, lab_p), "the device rebuild's points differ"
+    assert int(ulps.max()) <= 1, "the device rebuild's points lie more than a float32 ulp apart"
+    assert sum(sites.values()) == n_read == 1, f"a rebuild's host syncs: {dict(sites)}"
+    return {"points": int(xyz.shape[0]), "fused_points": fused, "points_differing": n_diff,
+            "host_syncs": sum(sites.values()), "ms": ms, "ms_host_fusion_plain": ms_plain}
 
 
 def phase10_small(root: Path):
@@ -1626,15 +1693,103 @@ def pgo_graph(m, e):
         edge_info=np.ones(e, np.float32), n_edges=e)
 
 
+def eager_pgo(graph, scfg, dev):
+    """optimize_pose_graph as it ran before the CUDA graph: every LM
+    iteration dispatched from the host (`lm_loop`). Returns the poses."""
+    poses, edges = pose_graph.device_graph(graph, dev)
+    edges = pose_graph.normalized_info(edges)
+    lam = torch.full((), 1e-4, dtype=torch.float32, device=dev)
+    return pose_graph.lm_loop(poses, lam, edges, scfg.pgo_huber, scfg.pgo_iters)[0].cpu().numpy()
+
+
+@contextlib.contextmanager
+def same_kernels():
+    """The PGO's kernels made reproducible for a comparison: index_add_'s
+    deterministic (sorted) CUDA path in place of its float atomics, and
+    the LU on cuSOLVER, as the captured graph runs it."""
+    saved = torch.backends.cuda.preferred_linalg_library()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(saved)
+        torch.use_deterministic_algorithms(False)
+
+
+def host_launches(fn):
+    """The kernel and graph launches the host makes in one call of fn (its
+    cudaLaunchKernel, cuLaunchKernel and cudaGraphLaunch calls under
+    torch.profiler), and the device kernels that ran in that window
+    (memory copies and sets left out)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = prof.events()
+    calls = collections.Counter(e.name for e in ev
+                                if e.device_type == torch.autograd.DeviceType.CPU
+                                and ("LaunchKernel" in e.name or "GraphLaunch" in e.name))
+    kernels_run = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                      and not e.name.startswith(("Memcpy", "Memset")) for e in ev)
+    return sum(calls.values()), dict(calls), kernels_run
+
+
+def compare_pgo(tag, g, scfg, dev):
+    """optimize_pose_graph (the first LM iteration eager, the others a
+    replayed CUDA graph) against the eager loop on the card. index_add_
+    adds in no fixed order, and over 20 LM iterations on a graph far from
+    its minimum an accept or reject that flips on that rounding sends two
+    eager runs apart; so the poses are held within 1e-5 with the kernels
+    made reproducible (`same_kernels`, the eager loop's spread printed
+    beside), and printed as they run. Then ms a call, host launches a call
+    and device kernels, before and after; the cost falls."""
+    m = g.n_poses
+    with same_kernels():
+        eager = [eager_pgo(g, scfg, dev) for _ in range(2)]
+        opt = pose_graph.optimize_pose_graph(g, scfg, device=dev)
+    diff = float(np.max(np.abs(opt.poses[:m] - eager[0][:m])))
+    spread = float(np.max(np.abs(eager[1][:m] - eager[0][:m])))
+    free = [eager_pgo(g, scfg, dev) for _ in range(2)]
+    opt_free = pose_graph.optimize_pose_graph(g, scfg, device=dev)
+    diff_free = float(np.max(np.abs(opt_free.poses[:m] - free[0][:m])))
+    spread_free = float(np.max(np.abs(free[1][:m] - free[0][:m])))
+    before, after = pose_graph.graph_cost(g, dev), pose_graph.graph_cost(opt, dev)
+    _, ms_eager = host_ms(lambda: eager_pgo(g, scfg, dev))
+    _, ms = host_ms(lambda: pose_graph.optimize_pose_graph(g, scfg, device=dev))
+    n_eager, _, k_eager = host_launches(lambda: eager_pgo(g, scfg, dev))
+    n_graph, kinds, k_graph = host_launches(
+        lambda: pose_graph.optimize_pose_graph(g, scfg, device=dev))
+    print(f"{tag}: {scfg.pgo_iters} LM iterations, graph replay against the eager loop: poses max "
+          f"|diff| {diff:.3e} (tol 1e-5; the eager loop against itself {spread:.3e}) with "
+          f"reproducible kernels, {diff_free:.3e} as they run (eager against itself "
+          f"{spread_free:.3e}); a call "
+          f"{ms_eager:.2f} ms eager, {ms:.2f} ms replayed (upload and copy back included); host "
+          f"launches a call {n_eager} eager, {n_graph} replayed ({kinds}); device kernels "
+          f"{k_eager} / {k_graph}; cost {before:.4e} -> {after:.4e}")
+    assert np.isfinite(opt.poses).all() and diff <= 1e-5, (tag, diff)
+    assert after < before, (tag, before, after)
+    return {"max_pose_diff_eager": diff, "eager_spread": spread,
+            "max_pose_diff_eager_as_run": diff_free, "eager_spread_as_run": spread_free,
+            "ms_eager": ms_eager,
+            "ms": ms, "host_launches_eager": n_eager, "host_launches": n_graph,
+            "device_kernels_eager": k_eager, "device_kernels": k_graph, "cost_before": before,
+            "cost_after": after}
+
+
 def phase10_pgo(dev):
-    """(e) optimize_pose_graph at PGO_POSES poses and PGO_EDGES edges:
-    ms for PGO_ITERS iterations, the assembly's share, the cost."""
-    g = pgo_graph(PGO_POSES, PGO_EDGES)
+    """(e) optimize_pose_graph at PGO_POSES poses and PGO_EDGES edges and
+    at phase 10 (a)'s graph size, each against the eager loop
+    (`compare_pgo`); at the large size an iteration's assembly and LU
+    shares (eager, op by op) and the host syncs of a call."""
     scfg = semicp_torch.Config().slam.__class__(pgo_iters=PGO_ITERS)
-    before = pose_graph.graph_cost(g, dev)
+    g = pgo_graph(PGO_POSES, PGO_EDGES)
     _, first_ms = host_ms(lambda: pose_graph.optimize_pose_graph(g, scfg, device=dev))
-    opt, ms = host_ms(lambda: pose_graph.optimize_pose_graph(g, scfg, device=dev))
-    after = pose_graph.graph_cost(opt, dev)
+    big = compare_pgo(f"phase 10 (e): PGO at {PGO_POSES} poses, {PGO_EDGES} edges "
+                      f"({6 * PGO_POSES}-wide system)", g, scfg, dev)
     _, sites = host_syncs(lambda: pose_graph.optimize_pose_graph(g, scfg, device=dev))
     poses, edges = pose_graph.device_graph(g, dev)
     edges = pose_graph.normalized_info(edges)
@@ -1645,34 +1800,18 @@ def phase10_pgo(dev):
     H, g_, _ = pose_graph.normal_equations(poses, edges, huber)
     solve_ms = cuda_ms(lambda: torch.linalg.solve_ex(H, -g_[:, None]), PGO_ITERS)
     n = 6 * PGO_POSES
-    print(f"phase 10 (e): PGO at {PGO_POSES} poses, {PGO_EDGES} edges ({n}-wide system), "
-          f"{PGO_ITERS} LM iterations: {ms:.1f} ms (first call {first_ms:.1f} ms), upload and "
-          f"copy back included; host syncs {sum(sites.values())} ({dict(sites)}); an iteration "
-          f"{it_ms:.3f} ms, of which the assembly {asm_ms:.3f} ms ({asm_ms / it_ms:.3f}) and the "
-          f"LU solve {solve_ms:.3f} ms ({solve_ms / it_ms:.3f}; {2 * n ** 3 / 3:.2e} flop); cost "
-          f"{before:.4e} -> {after:.4e}")
-    assert np.isfinite(opt.poses).all() and after < before, (before, after)
-    # at a SLAM run's size: the host's dispatch against the device's work
-    small = pgo_graph(PGO_SMALL_POSES, PGO_SMALL_EDGES)
-    pose_graph.optimize_pose_graph(small, scfg, device=dev)
-    _, small_ms = host_ms(lambda: pose_graph.optimize_pose_graph(small, scfg, device=dev))
-    n_k, busy = device_work(lambda: pose_graph.optimize_pose_graph(small, scfg, device=dev))
-    print(f"phase 10 (e): PGO at {PGO_SMALL_POSES} poses, {PGO_SMALL_EDGES} edges: {small_ms:.1f} "
-          f"ms a call ({PGO_ITERS} iterations), {n_k} device kernels, {busy:.2f} ms of device "
-          f"time (busy share {busy / small_ms:.3f})")
-    return {"poses": PGO_POSES, "edges": PGO_EDGES, "iters": PGO_ITERS, "ms": ms,
+    print(f"phase 10 (e): PGO at {PGO_POSES} poses: first call {first_ms:.1f} ms (the capture's "
+          f"first build); host syncs of a call {sum(sites.values())} ({dict(sites)}); an eager "
+          f"iteration {it_ms:.3f} ms, of which the assembly {asm_ms:.3f} ms "
+          f"({asm_ms / it_ms:.3f}) and the LU solve {solve_ms:.3f} ms ({solve_ms / it_ms:.3f}; "
+          f"{2 * n ** 3 / 3:.2e} flop)")
+    small = compare_pgo(f"phase 10 (e): PGO at {PGO_SMALL_POSES} poses, {PGO_SMALL_EDGES} edges",
+                        pgo_graph(PGO_SMALL_POSES, PGO_SMALL_EDGES), scfg, dev)
+    return {"poses": PGO_POSES, "edges": PGO_EDGES, "iters": PGO_ITERS, **big,
             "first_ms": first_ms, "ms_per_iter": it_ms, "assembly_ms": asm_ms,
-            "solve_ms": solve_ms, "assembly_share": asm_ms / it_ms, "cost_before": before,
-            "cost_after": after, "host_syncs": sum(sites.values()),
-            "small": {"poses": PGO_SMALL_POSES, "edges": PGO_SMALL_EDGES, "ms": small_ms,
-                      "device_kernels": n_k, "device_ms": busy}}
-
-
-def device_work(fn):
-    """(device kernels, their summed device ms) of one call of fn
-    (`device_events`)."""
-    _, ev = device_events(fn)
-    return len(ev), sum(e.time_range.elapsed_us() for e in ev) / 1e3
+            "solve_ms": solve_ms, "assembly_share": asm_ms / it_ms,
+            "host_syncs": sum(sites.values()),
+            "small": {"poses": PGO_SMALL_POSES, "edges": PGO_SMALL_EDGES, **small}}
 
 
 def phase10_knn(pts, dev):
@@ -1890,11 +2029,13 @@ def phase11_dist(root: Path, dev):
           f"{world} (the ring's rotation has nothing to send); {out['keyframes']} keyframes, "
           f"{out['loop_edges']} loop edges, ATE {out['ate_rmse_m']:.4e} m (tol 0.5); map BA "
           f"{ba} (matching {ba.get('match_s')} s, solve {ba.get('solve_s')} s); "
-          f"{frame_ms(recs):.2f} ms per frame (JSONL clock); PhaseTimer means (ms) "
+          f"{frame_ms(recs):.2f} ms per frame (JSONL clock; limit {FRAME_LIMIT_MS:.0f} ms), "
+          f"{phase_means(out['timing'])}; PhaseTimer means (ms) "
           f"{ {k: round(v['mean_ms'], 3) for k, v in out['timing'].items()} }; EM iterations "
           f"per frame {np.mean(iters):.2f}; launches {launches}")
     assert backend == "nccl" and world == 1, (backend, world)
     assert out["frames"] == SLAM_FRAMES and np.isfinite(P).all() and out["ate_rmse_m"] < 0.5
+    assert frame_ms(recs) <= FRAME_LIMIT_MS, f"phase 11 (c): {frame_ms(recs):.2f} ms a frame"
     assert ba["observations"] >= 6 * out["keyframes"], ba
     missing = [k for k in ("moments_sparse", "nn_sparse", "estep_reduce", "gn_solve", "gn_dist")
                if launches[k] == 0]
@@ -1908,43 +2049,91 @@ def phase11_dist(root: Path, dev):
                      "em_iters_per_frame": float(np.mean(iters)),
                      "launches_per_frame": {k: v / SLAM_FRAMES for k, v in launches.items()}}}
 
-    # (d) the last scan-to-map pair: the distributed align against the
-    # single-device one, both from the frame's warm start
+    # (d) every scan-to-map pair of the run: the distributed align against
+    # the single-device one (`trip_parity`) and against the single-device
+    # align with G1d's M-step (equal), each from the frame's warm start
     cfg = semicp_torch.Config().override(parse_overrides(SLAM_LOOP))
-    src, tgt, T0 = calls[-1]
     mesh = make_mesh(dev)
     dist_align = orig(mesh, cfg)
+    summary["d"] = dist_pairs(calls, cfg, mesh, orig)
+    src, tgt, T0 = calls[-1]
     rd = dist_align(src, tgt, T0)
-    rs = semicp_torch.make_align_fn(cfg)(src, tgt, T0)
-    rg = g1d_align_fn(cfg, mesh)(src, tgt, T0)
-    dT = float(torch.max(torch.abs(rd.T - rs.T)))
-    dT_g = float(torch.max(torch.abs(rd.T - rg.T)))
     rd2, sites = host_syncs(lambda: dist_align(src, tgt, T0))
     n_sync, it = sum(sites.values()), int(rd2.iterations)
     _, n_kernels = device_kernels(lambda: dist_align(src, tgt, T0))
     ms = host_ms(lambda: dist_align(src, tgt, T0))[1]
     ms_single = host_ms(lambda: semicp_torch.make_align_fn(cfg)(src, tgt, T0))[1]
-    it_s, it_g = int(rs.iterations), int(rg.iterations)
-    print(f"phase 11 (d): the last scan-to-map pair ({src.n_pad} points against a "
-          f"{tgt.n_pad}-point submap): distributed T against make_align_fn's max |diff| {dT:.3e} "
-          f"(tol 1e-4), against make_align_fn with G1d's M-step {dT_g:.3e} (tol 1e-4); EM "
-          f"iterations {int(rd.iterations)}, with G1d's M-step on one device {it_g} (equal), "
-          f"make_align_fn {it_s}; host syncs of a distributed align {n_sync} over {it} EM "
-          f"passes ({dict(sites)}); {n_kernels} device kernels; {ms:.2f} ms against "
-          f"{ms_single:.2f} ms on one device, {ms / it:.3f} ms an EM pass against "
-          f"{ms_single / it_s:.3f}")
-    # the trip count is held to the single-device align that runs the same
-    # M-step: G1's f32 sums and G1d's float64 moments part at rounding,
-    # which can flip an NN near-tie in the next E-step and so move an
-    # em_step that lies near em.trans_eps across it
-    assert dT <= 1e-4 and dT_g <= 1e-4 and int(rd.iterations) == it_g, (dT, dT_g, rd, rg)
+    it_s = int(semicp_torch.make_align_fn(cfg)(src, tgt, T0).iterations)
+    print(f"phase 11 (d): the last pair ({src.n_pad} points against a {tgt.n_pad}-point "
+          f"submap): host syncs of a distributed align {n_sync} over {it} EM passes "
+          f"({dict(sites)}); {n_kernels} device kernels; {ms:.2f} ms against {ms_single:.2f} ms "
+          f"on one device, {ms / it:.3f} ms an EM pass against {ms_single / it_s:.3f}")
+    assert int(rd.iterations) == it
     assert n_sync == it, "a host sync crept into the distributed EM pass beyond its flag"
-    summary["d"] = {"max_T_diff": dT, "max_T_diff_g1d_single": dT_g, "iterations": it,
-                    "iterations_g1d_single": it_g, "iterations_single": it_s,
-                    "host_syncs_per_em_pass": n_sync / it, "device_kernels": n_kernels,
-                    "ms": ms, "ms_single": ms_single, "ms_per_em_pass": ms / it,
-                    "ms_per_em_pass_single": ms_single / it_s}
+    summary["d"].update({"iterations": it, "host_syncs_per_em_pass": n_sync / it,
+                         "device_kernels": n_kernels, "ms": ms, "ms_single": ms_single,
+                         "ms_per_em_pass": ms / it, "ms_per_em_pass_single": ms_single / it_s})
     return summary, launches, mesh
+
+
+def dist_pairs(calls, cfg, mesh, make_dist_align_fn):
+    """(d) every distributed align call of run_slam --dist again: against
+    `g1d_align_fn` (the same M-step on one device: the same EM iterations,
+    T equal to the bit) and against make_align_fn by `trip_parity` (equal
+    trip counts: T within 1e-4; counts apart, where an em_step lies within
+    rounding of em.trans_eps: T within 1e-4 at the smaller count and the
+    final T within 1e-4 plus the extra passes' motion, and beyond one
+    pass apart every extra pass a tail step, em_step at most twice
+    em.trans_eps; each such pair's stopping margins printed)."""
+    single, g1d = semicp_torch.make_align_fn(cfg), g1d_align_fn(cfg, mesh)
+    fns = {}
+
+    def dist_run(src, tgt, T0, mi):
+        if mi not in fns:
+            fns[mi] = make_dist_align_fn(mesh, cfg if mi is None
+                                         else cfg.override({"em.max_iters": mi}))
+        r = fns[mi](src, tgt, T0)
+        return r.T.cpu().numpy(), int(r.iterations)
+
+    def single_run(src, tgt, T0, mi):
+        r = single(src, tgt, T0, max_iters=mi)
+        return r.T.cpu().numpy(), int(r.iterations)
+
+    apart, failed, worst, worst_common, bad = [], [], 0.0, 0.0, []
+    for n, (src, tgt, T0) in enumerate(calls):
+        T_d, it_d = dist_run(src, tgt, T0, None)
+        rg = g1d(src, tgt, T0)
+        if int(rg.iterations) != it_d or not same_bits(rg.T.cpu(), torch.from_numpy(T_d)):
+            bad.append(n)
+        r = trip_parity(lambda mi: dist_run(src, tgt, T0, mi),
+                        lambda mi: single_run(src, tgt, T0, mi), cfg.em.trans_eps)
+        if r["iterations"][0] != r["iterations"][1]:
+            apart.append((n, r))
+            worst_common = max(worst_common, r["max_T_diff_at_common_pass"])
+        else:
+            worst = max(worst, r["max_T_diff"])
+        if not r["ok"]:
+            failed.append((n, r))
+    for n, r in apart:
+        print(f"phase 11 (d): pair {n}: EM iterations {r['iterations']} (distributed, "
+              f"make_align_fn); T at pass {r['common_pass']} {r['max_T_diff_at_common_pass']:.3e} "
+              f"apart (tol 1e-4), final {r['max_T_diff']:.3e} (tol 1e-4 + the extra passes' "
+              f"motion {r['extra_pass_step']:.3e}); stopping margins |em_step / trans_eps - 1| "
+              f"{r['stop_margins'][0]:.3e}, {r['stop_margins'][1]:.3e}; the longer path's from "
+              f"that pass on {[float(f'{m:.3e}') for m in r['go_on_margins']]}; rule holds: "
+              f"{r['ok']}")
+    print(f"phase 11 (d): {len(calls)} distributed aligns against make_align_fn: {len(apart)} "
+          f"stop apart in EM iterations, T within {worst:.3e} where the counts are equal (tol 1e-4) and "
+          f"within {worst_common:.3e} at the common pass where not; against make_align_fn with "
+          f"G1d's M-step: {len(calls) - len(bad)} of {len(calls)} equal in EM iterations and T "
+          f"to the bit")
+    assert not bad, f"phase 11 (d): pairs that differ from g1d_align_fn: {bad}"
+    assert not failed, f"phase 11 (d): pairs that break the trip rule: {failed}"
+    return {"pairs": len(calls), "pairs_apart": len(apart), "max_T_diff_equal_counts": worst,
+            "max_T_diff_common_pass": worst_common,
+            "apart": [{"pair": n, "iterations": r["iterations"],
+                       "stop_margins": r["stop_margins"], "go_on_margins": r["go_on_margins"]}
+                      for n, r in apart]}
 
 
 def g1d_align_fn(cfg, mesh):
@@ -1968,14 +2157,17 @@ def g1d_align_fn(cfg, mesh):
 
 def compare_dist_tail(tag, planes, gcfg, mesh, timed_reps=0):
     """G1d (em_tail_dist at world size 1: the moments kernel, the all-reduce
-    of its row, the tail kernel) from T_in = I, against em_tail_dist_plain
-    in f32 and on the planes in float64, against G1 (em_tail) and against
-    its float64 mirror (gn_moments_plain, gn_solve_moments_plain).
+    of its row, the tail kernel) from T_in = I, against its plain version
+    (em_tail_dist_moments_plain: gn_moments_plain, its all-reduce,
+    gn_solve_moments_plain; the CPU path), against the JAX package's
+    arithmetic (em_tail_dist_plain, f32 sums all-reduced every pass) in
+    f32 and on the planes in float64, and against G1 (em_tail).
     - The row: each entry within 1e-9 relative of gn_moments_plain, with
       1e-15 of the row's largest entry as the floor for a sum that cancels
       to near zero (two float64 sums in other orders).
-    - T within 1e-5 of both plain versions and of G1; the same GN passes
-      as G1 and as the mirror.
+    - T within 1e-5 of the plain version, of the JAX arithmetic in f32 and
+      float64, and of G1; the same GN passes as G1 and as the plain
+      version.
     - The cost within 1e-6 relative and H with compare_tail's tolerances
       (1e-4 of its largest entry plus 1e-4 relative) of the float64 plain
       version. The f32 plain version's cost, whose c, 2 b.p and p.A p
@@ -1986,9 +2178,9 @@ def compare_dist_tail(tag, planes, gcfg, mesh, timed_reps=0):
       calls equal to the bit.
     - Device kernels of a call: G1d's two, each once (`kernel_counts`: the
       largest count over up to 10 profiled windows), and the others NCCL's.
-    Returns (T max_abs_err, passes, wrapper ms, alone ms, plain ms, flops,
-    bytes, device kernels a call by name); the times None unless
-    timed_reps."""
+    Returns (T max_abs_err against its plain version, passes, wrapper ms,
+    alone ms, plain ms (its plain version's), flops, bytes, device kernels
+    a call by name); the times None unless timed_reps."""
     z, cov6, a6, b3, c, wsum = planes
     n, dev = z.shape[1], z.device
     T0 = torch.eye(4, device=dev)
@@ -2006,7 +2198,8 @@ def compare_dist_tail(tag, planes, gcfg, mesh, timed_reps=0):
     out_g = [t.clone() for t in em_tail(T0, z, cov6, a6, b3, c, wsum, gcfg)]
     passes_g = int(kernels.WALKED["gn_solve"][S_PASSES])
     row_p = gn_moments_plain(z, a6, b3, c, wsum)
-    T_m, *_, passes_m = gn_solve_moments_plain(T0, row_p, gcfg)
+    out_m = em_tail_dist_moments_plain(T0, z, cov6, a6, b3, c, wsum, gcfg, mesh)
+    T_m, passes_m = out_m.T, gn_solve_moments_plain(T0, row_p, gcfg)[4]
     row_err = float(torch.max(torch.abs(row - row_p)
                               / (1e-9 * torch.abs(row_p) + 1e-15 * torch.abs(row_p).max())))
     moved_p, rc_p = move_source_plain(out_k[0], z, cov6)
@@ -2024,15 +2217,16 @@ def compare_dist_tail(tag, planes, gcfg, mesh, timed_reps=0):
     c_err64, c_err32 = float(torch.abs(ck - c64) / torch.abs(c64)), float(torch.abs(cp - c64)
                                                                           / torch.abs(c64))
     s_err, e_err, n_err = (float(torch.abs(a - b)) for a, b in ((sk, sp), (ek, ep), (nk, np_)))
-    ok = (row_err <= 1.0 and dT <= 1e-5 and dT64 <= 1e-5 and dTg <= 1e-5 and h_p <= 1.0
+    ok = (row_err <= 1.0 and dT <= 1e-5 and dT64 <= 1e-5 and dTg <= 1e-5 and dTm <= 1e-5
+          and h_p <= 1.0
           and h_64 <= 1.0 and c_err64 <= 1e-6 and s_err <= 1e-3 * float(torch.abs(sp)) + 1e-6
           and e_err <= 1e-4 and n_err <= 1e-5 * float(torch.abs(np_)))
     blocks, share, tail_blocks = dist_plan(dev, n)[:3]
     print(f"{tag}: N {n}, plan (moments blocks, share, tail blocks) ({blocks}, {share}, "
           f"{tail_blocks}), {passes} GN passes (G1 {passes_g}, float64 mirror "
           f"{int(passes_m)}); row worst ratio {row_err:.3e} of tol (1e-9 relative); T max "
-          f"|diff| {dT:.3e} against em_tail_dist_plain, {dT64:.3e} against it in float64, "
-          f"{dTg:.3e} against G1, {dTm:.3e} against the mirror (tol 1e-5); H worst ratio "
+          f"|diff| {dTm:.3e} against its plain version, {dT:.3e} against em_tail_dist_plain, "
+          f"{dT64:.3e} against it in float64, {dTg:.3e} against G1 (tol 1e-5); H worst ratio "
           f"{h_64:.3f} of tol against float64 plain, {h_p:.3f} against f32 plain; cost "
           f"{float(ck):.9e}, float64 plain {float(c64):.9e} (rel {c_err64:.3e}, tol 1e-6), "
           f"f32 plain {float(cp):.9e} (rel {c_err32:.3e}); step {float(sk):.3e} vs "
@@ -2053,13 +2247,14 @@ def compare_dist_tail(tag, planes, gcfg, mesh, timed_reps=0):
     nbytes = BYTES_GN_DIST_POINT * n + 4 * (16 + 64) + 8 * 80
     per_call = {k: v / calls for k, v in names.items()}
     if not timed_reps:
-        return dT, passes, None, None, None, flops, nbytes, per_call
+        return dTm, passes, None, None, None, flops, nbytes, per_call
     ms = cuda_ms(g1d, timed_reps)
     k_ms = kernel_ms("gn_dist", g1d, timed_reps)
-    plain_ms = cuda_ms(lambda: em_tail_dist_plain(T0, z, cov6, a6, b3, c, wsum, gcfg, mesh), 5)
-    print(f"{tag}: em_tail_dist wrapper {ms:.4f} ms, alone {k_ms:.4f} ms, em_tail_dist_plain "
+    plain_ms = cuda_ms(lambda: em_tail_dist_moments_plain(T0, z, cov6, a6, b3, c, wsum, gcfg,
+                                                          mesh), 5)
+    print(f"{tag}: em_tail_dist wrapper {ms:.4f} ms, alone {k_ms:.4f} ms, its plain version "
           f"{plain_ms:.3f} ms ({passes} GN passes ran)")
-    return dT, passes, ms, k_ms, plain_ms, flops, nbytes, per_call
+    return dTm, passes, ms, k_ms, plain_ms, flops, nbytes, per_call
 
 
 def phase11_g1(src, tgt, cfg, mesh, results):
@@ -2158,6 +2353,55 @@ def phase11(dev, card, results, loop_out, bench):
     summary["e"] = phase11_g1(src, tgt, cfg, mesh, results)
     summary["f"] = phase11_schur(dev, mesh)
     return summary, batch_launches, bslam_launches, dist_launches
+
+
+def phase12(dev, card):
+    """The port's scripts on the card, each as a function call: the ring
+    bench at its full size (2^19 map points, 2^17 queries, K = 20: K4
+    against K2, their within-gate agreement), the ablation's full sweep
+    (K5, K2, K3, G1) and the scaling bench at world 1 with 120000 points
+    and 4 pairs; their JSON fields, and the kernels they launched."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
+    import torch_ablation_bench
+    import torch_ring_bench
+    import torch_scaling_bench
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = (("ring", torch_ring_bench, ["--out", f"{tmp}/ring.json"]),
+                ("ablation", torch_ablation_bench, [f"{tmp}/ablation.json"]),
+                ("scaling", torch_scaling_bench, ["4", "120000", "--out", f"{tmp}/scaling.json"]))
+        for name, script, argv in runs:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                out[name] = script.main(argv)
+            path = argv[0] if name == "ablation" else argv[-1]
+            assert json.loads(Path(path).read_text()) == out[name], f"{name}: its JSON file"
+            assert out[name]["card"] == card, (name, out[name]["card"])
+            print(f"phase 12: {name} bench in {time.perf_counter() - t0:.1f} s: "
+                  f"{json.dumps(out[name])}")
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    ring, abl, sc = out["ring"], out["ablation"], out["scaling"]
+    assert (ring["map_points"], ring["queries"], ring["classes"]) == (1 << 19, 1 << 17, 20)
+    assert ring["world"] == 1 and ring["backend"] == "nccl" and ring["within_gate_share"] > 0
+    assert ring["agree_within_tolerance"], f"ring: K4 and K2 disagree within the gate: {ring}"
+    assert [r["label_flip"] for r in abl["rows"]] == [0.0, 0.2, 0.4, 0.6]
+    assert all(r["seeds"] == 3 and r["trans_err_semantic_m"] < r["trans_err_uniform_m"]
+               for r in abl["rows"]), abl["rows"]
+    (row,) = sc["rows"]
+    assert sc["world"] == 1 and sc["backend"] == "nccl" and sc["platform"] == "gpu"
+    assert row["batch"] == 4 and row["aligns_per_s"] > 0 and row["efficiency"] is None
+    missing = [k for k in ("nn_dense", "nn_sparse", "estep_reduce", "moments_dense", "gn_solve")
+               if launches[k] == 0]
+    print(f"phase 12: ring step {ring['ms_per_ring_step']} ms (K4 dense, K2 sparse), within-gate "
+          f"max |d2 diff| {ring['max_abs_d2_diff_within_gate']:.3e}; ablation semantic / uniform "
+          f"m {[(r['trans_err_semantic_m'], r['trans_err_uniform_m']) for r in abl['rows']]}; "
+          f"scaling {row['aligns_per_s']:.2f} aligns/s at world 1; kernel launches {launches}")
+    assert not missing, f"kernels not launched by the scripts: {missing}"
+    return {**out, "launches": launches}
 
 
 def main() -> None:
@@ -2304,6 +2548,9 @@ def main() -> None:
                 "ate_rmse_m": sa["ate_m"]}
     last, batch_l, bslam_l, dist_l = phase11(dev, card, results, loop_out, (src, tgt, cfg))
     print(f"phase 11: done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    scripts = phase12(dev, card)
+    print(f"phase 12: done in {time.perf_counter() - t0:.1f} s")
     # each kernel reports the launches of a path that runs it: keyframe
     # SLAM at full width for K1-K3 and G1, its small sequence on the card
     # for K4, plain run_batch for K5, phase 7 for K6, run_slam --dist for
@@ -2320,13 +2567,14 @@ def main() -> None:
         r["launches_per_batch_step"] = batch_l[n] / BATCH_FRAMES
         r["launches_per_batch_slam_step"] = bslam_l[n] / SLAM_FRAMES
         r["launches_per_dist_slam_frame"] = dist_l[n] / SLAM_FRAMES
-    print(f"phase 2-11: {time.perf_counter() - t_start:.1f} s")
+    print(f"phase 2-12: {time.perf_counter() - t_start:.1f} s")
 
     import torch.distributed as tdist
 
     tdist.destroy_process_group()
     print(json.dumps({"slam": slam_summary}))
     print(json.dumps({"phase11": last}))
+    print(json.dumps({"scripts": scripts}))
     print(json.dumps({"kernels": results}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

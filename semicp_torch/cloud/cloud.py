@@ -85,3 +85,21 @@ def make_cloud(xyz: np.ndarray, label: np.ndarray | None = None,
         valid=torch.from_numpy(valid).to(device),
         count=torch.tensor(n, dtype=torch.int32, device=device),
     )
+
+
+def cloud_from_tensors(xyz: torch.Tensor, label: torch.Tensor, n_pad: int) -> Cloud:
+    """`make_cloud` of device tensors, on their device: xyz (3, n) float32
+    and label (n,) int32 padded to n_pad as `make_cloud` pads them, with
+    no host copy (the count is filled in on the device)."""
+    n, dev = xyz.shape[1], xyz.device
+    if n > n_pad:
+        raise ValueError(f"cloud has {n} points > capacity {n_pad}")
+    xyz_p = torch.full((3, n_pad), FAR, dtype=torch.float32, device=dev)
+    xyz_p[:, :n] = xyz
+    lab_p = torch.full((n_pad,), -1, dtype=torch.int32, device=dev)
+    lab_p[:n] = label
+    valid = torch.arange(n_pad, device=dev) < n
+    cov6 = torch.zeros((6, n_pad), dtype=torch.float32, device=dev)
+    cov6[:3] = 1.0
+    return Cloud(xyz=xyz_p, label=lab_p, cov6=cov6, valid=valid,
+                 count=torch.full((), n, dtype=torch.int32, device=dev))

@@ -9,6 +9,7 @@ from semicp_torch.data.kitti import (  # noqa: F401
 )
 from semicp_torch.data.pcd import load_pcd, save_pcd  # noqa: F401
 from semicp_torch.data.synthetic import (  # noqa: F401
+    corridor_scene,
     make_scene,
     make_pair,
     make_trajectory,

@@ -1,7 +1,9 @@
 """KITTI / SemanticKITTI ingestion — direct binary parsing, no PCD step.
 
 Port of `semicp/data/kitti.py`, host-side numpy and unchanged, so both
-packages read a sequence into the same arrays to the bit.
+packages read a sequence into the same arrays to the bit. `voxel_keep`
+is `voxel_downsample`'s selection on device tensors (the submap rebuild,
+slam/submap.py).
 
 Formats:
   velodyne .bin : float32 little-endian, N x (x, y, z, reflectance)
@@ -14,6 +16,7 @@ Formats:
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 # SemanticKITTI raw label id -> train id (0 = unlabeled/ignored, 1..19 =
 # the standard 19 train classes; moving classes fold onto their static
@@ -108,3 +111,30 @@ def voxel_downsample(
     _, keep = np.unique(key, return_index=True)
     keep.sort()
     return xyz[keep], (labels[keep] if labels is not None else None)
+
+
+def voxel_keep(xyz: torch.Tensor, valid: torch.Tensor, voxel: float) -> torch.Tensor:
+    """`voxel_downsample`'s selection on the device: the columns of xyz
+    (3, N) float32 that it keeps of the valid ones, ascending. That is the
+    first valid column of each cell, by the same key (floor(xyz / voxel)
+    in float32, the XOR of the cells' products), or every valid column
+    where voxel <= 0. A stable sort by key, then by validity, puts each
+    cell's first valid column at the head of its run, as numpy's
+    `unique(return_index=True)` (a stable sort) does; the heads, sorted,
+    are `keep.sort()`. One host read: the count kept."""
+    n, dev = xyz.shape[1], xyz.device
+    if voxel > 0:
+        # true division by a float32 on the device, as numpy divides: by a
+        # host scalar the card multiplies by its reciprocal
+        cells = torch.floor(xyz / torch.full((), voxel, dtype=torch.float32, device=dev))
+        cells = cells.to(torch.int64)
+        key = (cells[0] * 73856093) ^ (cells[1] * 19349663) ^ (cells[2] * 83492791)
+        order = torch.sort(key, stable=True).indices
+        order = order[torch.sort((~valid[order]).to(torch.uint8), stable=True).indices]
+        ks = key[order]
+        head = valid[order]
+        head[1:] &= ks[1:] != ks[:-1]
+    else:
+        order, head = torch.arange(n, device=dev), valid
+    kept = torch.sort(torch.where(head, order, n)).values
+    return kept[:int(torch.sum(head))]

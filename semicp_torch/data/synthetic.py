@@ -5,7 +5,8 @@ Port of `semicp/data/synthetic.py`. From the same `np.random.Generator`
 JAX package, so scenes are equal to the bit; what passes through an
 SE(3) exponential (T_gt of `make_pair`, the poses of `make_trajectory`
 and the scans rendered from them) uses this package's f32 `se3_exp`,
-equal to the JAX one to f32 rounding.
+equal to the JAX one to f32 rounding. `corridor_scene` is the corridor
+of the JAX package's tests (tests/test_register.py) and ablation script.
 """
 
 from __future__ import annotations
@@ -54,6 +55,22 @@ def make_scene(rng, n_points: int = 4096, extent: float = 20.0, n_classes: int =
     lab = np.concatenate([p[1] for p in parts])
     perm = rng.permutation(len(xyz))[:n_points]
     return xyz[perm], lab[perm]
+
+
+def corridor_scene(rng, n: int):
+    """Ground and two walls, all parallel to x: translation-invariant along
+    x, so the only x information is the label boundary at x = 0. Labels
+    encode the surface and its side of x = 0 (6 classes). 2n points."""
+    g = np.stack([rng.uniform(-10, 10, n), rng.uniform(-4, 4, n),
+                  rng.normal(n) * 0 + rng.normal(size=n) * 0.01], -1)
+    w1 = np.stack([rng.uniform(-10, 10, n // 2), np.full(n // 2, -4.0)
+                   + rng.normal(size=n // 2) * 0.01, rng.uniform(0, 3, n // 2)], -1)
+    w2 = np.stack([rng.uniform(-10, 10, n // 2), np.full(n // 2, 4.0)
+                   + rng.normal(size=n // 2) * 0.01, rng.uniform(0, 3, n // 2)], -1)
+    xyz = np.concatenate([g, w1, w2]).astype(np.float32)
+    surf = np.concatenate([np.zeros(n), np.ones(n // 2), np.full(n // 2, 2)])
+    lab = (surf * 2 + (xyz[:, 0] > 0)).astype(np.int32)
+    return xyz, lab
 
 
 def make_pair(rng, scene_xyz: np.ndarray, scene_lab: np.ndarray, delta: np.ndarray,

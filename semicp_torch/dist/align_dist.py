@@ -8,14 +8,19 @@ submap, slam/submap.py) lives as one block on each rank. Each EM pass:
           block (dist/ring_corr.py: K2 at map-block scale, K4 below it,
           on CUDA), then the weight/class reduction of the local points
           (K3, register/estep.py)
-  M-step  Gauss-Newton/LM whose 6x6 system is all-reduced in every pass
-          (G1's distributed mode, register/gauss_newton.py
-          `em_tail_dist`), the all-reduced n_corr, and this rank's moved
-          source and rotated covariances at the new pose
+  M-step  Gauss-Newton/LM from one all-reduce an EM pass: each rank's
+          float64 moment row of its points, summed over the group, fixes
+          every GN pass's 6x6 system (G1's distributed mode, G1d on CUDA,
+          its plain version on the CPU: register/gauss_newton.py
+          `em_tail_dist`); then the all-reduced n_corr, and this rank's
+          moved source and rotated covariances at the new pose
 
-as the JAX package runs it inside one shard_map while_loop. Every rank
-derives its pose from the same all-reduced sums, so the result is the
-same on every rank. The host reads one flag an EM pass, as the
+as the JAX package runs it inside one shard_map while_loop, where the
+f32 system is all-reduced in every GN pass instead: the moments evaluate
+the same system more exactly, and an em_step within rounding of
+em.trans_eps can stop the two one pass apart. Every rank derives its
+pose from the same all-reduced row, so the result is the same on every
+rank. The host reads one flag an EM pass, as the
 single-device align does; the flag is all-reduced (MIN of "go on") before
 it is read, so that every rank takes the same number of passes and meets
 the same collectives.

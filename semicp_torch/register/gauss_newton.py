@@ -24,26 +24,28 @@ convergence test and the next E-step's inputs.
   first E-step's inputs).
 
 Distributed mode (`gn_solve(..., axis_name=...)` of the JAX package: the
-points sharded over a mesh, H, g and the cost all-reduced in every GN
-pass; dist/align_dist.py runs it):
+points sharded over a mesh; dist/align_dist.py runs it):
 
-* `gn_solve_dist_plain` is `gn_solve_plain` with the group's all-reduce
-  of each pass's system; `em_tail_dist_plain` adds em_step, the
-  all-reduced n_corr and the local moved and rc. They are the CPU path and
-  the reference of:
-* `em_tail_dist` on CUDA (G1d). The E-step's planes are frozen for the
-  M-step, and a pass's 28 sums are polynomials of degree <= 2 in p = T z,
-  so 74 pose-independent sums of the points (`gn_moments_plain`: sums of
-  a_k (z,1)(z,1)^T, b_j (z,1), c and wsum, in float64 because the cost
-  cancels c against b.p and p.A p) fix every pass's system exactly.
-  One M-step is a moments launch, one all-reduce of that row and a tail
-  launch that runs every GN pass from the row (each pass's sums in
-  float64 at the pass's pose, rounded to f32, then G1's f32 update),
-  em_step, n_corr and this rank's moved and rc: 2 launches and 1
-  collective, with no host read. `normal_equations_from_moments` and
-  `gn_solve_moments_plain` are the float64 mirrors of the tail kernel's
-  algebra and loop, for the tests and chip_smoke.py; nothing on the path
-  calls them.
+* `gn_solve_dist_plain` is the JAX package's arithmetic: `gn_solve_plain`
+  with the group's all-reduce of each pass's f32 H, g and cost;
+  `em_tail_dist_plain` adds em_step, the all-reduced n_corr and the local
+  moved and rc. They are the JAX mirror that the tests and chip_smoke.py
+  hold the port to; no run path calls them.
+* `em_tail_dist` (G1d on CUDA; `em_tail_dist_moments_plain` on CPU
+  tensors) evaluates the same GN system more exactly. The E-step's planes
+  are frozen for the M-step, and a pass's 28 sums are polynomials of
+  degree <= 2 in p = T z, so 74 pose-independent sums of the points
+  (`gn_moments_plain`: sums of a_k (z,1)(z,1)^T, b_j (z,1), c and wsum,
+  in float64 because the cost cancels c against b.p and p.A p) fix every
+  pass's system exactly. One M-step is this rank's moment row, one
+  all-reduce of that row, and every GN pass from the row (each pass's
+  sums in float64 at the pass's pose, rounded to f32, then G1's f32
+  update: `normal_equations_from_moments`, `gn_solve_moments_plain`),
+  em_step, n_corr and this rank's moved and rc. On CUDA that is 2
+  launches and 1 collective, with no host read. The EM trajectories of
+  the two arithmetics part at rounding, so where an em_step lies near
+  em.trans_eps an align may stop a pass or two apart from one with f32
+  sums (ROADMAP, expected differences; `semicp_torch.eval.pairs`).
 """
 
 from __future__ import annotations
@@ -413,9 +415,23 @@ def dist_plan(dev: torch.device, n: int):
     return plan
 
 
+def em_tail_dist_moments_plain(T_in, z, cov6, a6, b3, c, wsum, cfg: GNConfig,
+                               mesh) -> EMTail:
+    """G1d's plain version, the CPU path of `em_tail_dist`: this rank's
+    moment row (`gn_moments_plain`), the group's all-reduce of it (float64),
+    every GN pass from the row (`gn_solve_moments_plain`), then em_step,
+    n_corr (the row's wsum) and this rank's moved and rc at the new pose."""
+    row = mesh.all_reduce(gn_moments_plain(z, a6, b3, c, wsum))
+    T, cost, step, H, _ = gn_solve_moments_plain(T_in, row, cfg)
+    em_step = torch.linalg.vector_norm(se3_log(T @ se3_inverse(T_in)))
+    moved, rc = move_source_plain(T, z, cov6)
+    return EMTail(T, cost, step, H, em_step, row[73].to(T.dtype), moved, rc)
+
+
 def em_tail_dist(T_in, z, cov6, a6, b3, c, wsum, cfg: GNConfig, mesh,
                  out: TailOut | None = None) -> EMTail:
-    """`em_tail_dist_plain`'s result: by it on CPU tensors; on CUDA by G1d,
+    """The distributed M-step and the EM pass's tail from this rank's
+    planes: `em_tail_dist_moments_plain` on CPU tensors; on CUDA G1d,
     into out's buffers (`tail_outputs`; new ones where not given), whose
     state must not hold T_in: the moments kernel (this rank's moment row,
     `gn_moments_plain`), the group's all-reduce of that row, and the tail
@@ -425,7 +441,7 @@ def em_tail_dist(T_in, z, cov6, a6, b3, c, wsum, cfg: GNConfig, mesh,
     counts the GN passes that ran) and the all-reduced row in the plan's
     `row` (`dist_plan`)."""
     if not T_in.is_cuda:
-        return em_tail_dist_plain(T_in, z, cov6, a6, b3, c, wsum, cfg, mesh)
+        return em_tail_dist_moments_plain(T_in, z, cov6, a6, b3, c, wsum, cfg, mesh)
     dev = T_in.device
     n = _check_source(T_in, z, cov6)
     _check_planes(n, a6, b3, c, wsum)

@@ -4,9 +4,13 @@ Port of `semicp/slam/pose_graph.py`. The graph is a plain dataclass of
 numpy arrays on the host, with fixed capacities (M_pad poses, E_pad
 edges) and its counts as Python ints, so run_slam's `add_pose` and
 `add_edge` never touch a device. `optimize_pose_graph` uploads the
-active part of the graph once, runs every LM iteration on the device
-with no host sync (accept or reject by `torch.where`), and brings the
-poses back in one copy.
+active part of the graph once, runs the LM iterations on the device with
+no host sync (accept or reject by `torch.where`), and brings the poses
+back in one copy. On the CPU the iterations are an eager loop
+(`lm_loop`); on the card (`lm_loop_graph`) the first runs eagerly and
+the others replay it as a CUDA graph captured once a call, since an
+iteration is some 470 small kernels whose host dispatch outweighs their
+device time at a SLAM run's graph sizes.
 
 Math (left-multiplicative updates T <- exp(delta) T, tangent [v, w]):
   edge (i, j) measures Z_ij ~ T_i^{-1} T_j
@@ -185,9 +189,57 @@ def lm_step(poses, lam, edges: dict, huber: float):
     return poses, lam
 
 
+def lm_loop(poses, lam, edges: dict, huber: float, iters: int):
+    """`iters` LM iterations (`lm_step`), each dispatched from the host.
+    Returns (poses, lam)."""
+    for _ in range(iters):
+        poses, lam = lm_step(poses, lam, edges, huber)
+    return poses, lam
+
+
+def lm_loop_graph(poses, lam, edges: dict, huber: float, iters: int):
+    """`lm_loop` on CUDA tensors: the first iteration eagerly, on a side
+    stream (it is also the capture's warm-up), then one `lm_step` captured
+    there as a CUDA graph that writes its result back into its own inputs,
+    and replayed iters - 1 times on the caller's stream: the eager loop's
+    kernels in its order. The capture is made for this call's shapes (m
+    poses, e edges; both grow from call to call) and freed with the call.
+    The LU runs on cuSOLVER for the eager iteration and the capture
+    (MAGMA's hybrid LU cannot be captured), so that every iteration runs
+    the same kernels. Not `torch.cuda.graph`, which synchronises and
+    empties the allocator's cache at each capture. Raises where the
+    capture fails: nothing falls back to the eager loop."""
+    if iters <= 0:
+        return poses, lam
+    main = torch.cuda.current_stream(poses.device)
+    side = torch.cuda.Stream(poses.device)
+    graph = torch.cuda.CUDAGraph()
+    saved = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            poses, lam = lm_step(poses, lam, edges, huber)
+            if iters > 1:
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    p, lm = lm_step(poses, lam, edges, huber)
+                    poses.copy_(p)
+                    lam.copy_(lm)
+                finally:
+                    graph.capture_end()
+        main.wait_stream(side)
+    finally:
+        torch.backends.cuda.preferred_linalg_library(saved)
+    for _ in range(iters - 1):
+        graph.replay()
+    return poses, lam
+
+
 def optimize_pose_graph(graph: PoseGraph, cfg: SLAMConfig, device="cuda") -> PoseGraph:
     """Run cfg.pgo_iters Levenberg-Marquardt iterations on the graph, on
-    `device` (the card unless the caller asks for the CPU).
+    `device` (the card unless the caller asks for the CPU; there as a
+    replayed CUDA graph, `lm_loop_graph`).
 
     Robust by construction, as in the JAX package: pose 0 is gauge-fixed
     by elimination, not by a huge prior, so H stays well-conditioned in
@@ -200,8 +252,8 @@ def optimize_pose_graph(graph: PoseGraph, cfg: SLAMConfig, device="cuda") -> Pos
     poses, edges = device_graph(graph, device)
     edges = normalized_info(edges)
     lam = torch.full((), 1e-4, dtype=torch.float32, device=poses.device)
-    for _ in range(cfg.pgo_iters):
-        poses, lam = lm_step(poses, lam, edges, cfg.pgo_huber)
+    loop = lm_loop_graph if poses.is_cuda else lm_loop
+    poses, _ = loop(poses, lam, edges, cfg.pgo_huber, cfg.pgo_iters)
     out = graph.poses.copy()
     out[:graph.n_poses] = poses.cpu().numpy()
     return graph.replace(poses=out)

@@ -2,10 +2,17 @@
 
 Port of `semicp/slam/submap.py`. A submap concatenates the last
 `submap_keyframes` keyframe clouds in the newest keyframe's frame,
-voxel-downsamples them on the host, subsamples to the cloud capacity
-with a fixed seed, and preprocesses the result once with the full
-Config (kernel K1 on the card). Each rebuild reads the keyframes' points
-to the host in one device-to-host copy.
+voxel-downsamples them, subsamples to the cloud capacity with a fixed
+seed, and preprocesses the result once with the full Config (kernel K1
+on the card).
+
+The points never leave their device (`submap_points`). The host composes
+the keyframes' 4x4 transforms in float64 and uploads them in one copy,
+reads the count the voxel grid keeps (the rebuild's one host read,
+`data/kitti.py voxel_keep`), and uploads the seeded permutation, which
+depends only on that count. `submap_points_plain` is the JAX package's
+numpy fusion, kept as the plain version that chip_smoke.py holds the
+device rebuild to; nothing on a run path calls it.
 """
 
 from __future__ import annotations
@@ -13,9 +20,69 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from semicp_torch.cloud import Cloud, make_cloud, preprocess_cloud
+from semicp_torch.cloud import Cloud, cloud_from_tensors, preprocess_cloud
 from semicp_torch.config import Config
-from semicp_torch.data.kitti import voxel_downsample
+from semicp_torch.data.kitti import voxel_downsample, voxel_keep
+
+
+def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host array on dev; to the card from pinned memory without a host
+    wait (the work that reads it queues behind the copy)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
+
+
+def _subsample(count: int, n_pad: int):
+    """The seeded subsample of `count` fused points to n_pad, or None where
+    they fit: the JAX package's `default_rng(0).permutation`."""
+    return np.random.default_rng(0).permutation(count)[:n_pad] if count > n_pad else None
+
+
+def submap_points(keyframes, poses: np.ndarray, anchor_idx: int, voxel: float, n_pad: int):
+    """The fused points of `keyframes` in the anchor keyframe's frame, on
+    their clouds' device: (xyz (3, n) float32, label (n,) int32), n <= n_pad.
+    Each keyframe's valid prefix (a preprocessed cloud keeps its valid
+    points first) is moved by T_anchor^-1 T_kf in float64 and cast to
+    float32, as the JAX package does on the host."""
+    keyframes = list(keyframes)
+    dev = keyframes[0].cloud.device
+    T_anchor_inv = np.linalg.inv(poses[anchor_idx].astype(np.float64))
+    T = _upload(np.stack([T_anchor_inv @ poses[kf.index].astype(np.float64)
+                          for kf in keyframes]), dev)
+    xyz, lab, valid = [], [], []
+    for i, kf in enumerate(keyframes):
+        c = kf.cloud
+        xyz.append((T[i, :3, :3] @ c.xyz.to(torch.float64) + T[i, :3, 3:]).to(torch.float32))
+        lab.append(c.label)
+        valid.append(torch.arange(c.n_pad, device=dev) < c.count)
+    xyz, lab = torch.cat(xyz, dim=1), torch.cat(lab)
+    keep = voxel_keep(xyz, torch.cat(valid), voxel)
+    sel = _subsample(keep.shape[0], n_pad)
+    if sel is not None:
+        keep = keep[_upload(sel, dev)]
+    return xyz[:, keep], lab[keep]
+
+
+def submap_points_plain(keyframes, poses: np.ndarray, anchor_idx: int, voxel: float,
+                        n_pad: int):
+    """`submap_points` as the JAX package computes it, in numpy: each
+    keyframe's points read to the host, moved in float64, voxel-downsampled
+    by `voxel_downsample`, subsampled. Returns (pts (n, 3) float32, labels
+    (n,) int32)."""
+    T_anchor_inv = np.linalg.inv(poses[anchor_idx].astype(np.float64))
+    pts_all, lab_all = [], []
+    for kf in keyframes:
+        T = T_anchor_inv @ poses[kf.index].astype(np.float64)
+        n = int(kf.cloud.count)
+        pts = kf.cloud.xyz.cpu().numpy().T[:n].astype(np.float64)
+        pts_all.append(pts @ T[:3, :3].T + T[:3, 3])
+        lab_all.append(kf.cloud.label.cpu().numpy()[:n])
+    pts = np.concatenate(pts_all).astype(np.float32)
+    lab = np.concatenate(lab_all).astype(np.int32)
+    if voxel > 0:
+        pts, lab = voxel_downsample(pts, lab, voxel)
+    sel = _subsample(len(pts), n_pad)
+    return (pts, lab) if sel is None else (pts[sel], lab[sel])
 
 
 def build_submap(keyframes, poses: np.ndarray, anchor_idx: int, cfg: Config,
@@ -26,34 +93,8 @@ def build_submap(keyframes, poses: np.ndarray, anchor_idx: int, cfg: Config,
     submap's); poses: (M,4,4) current keyframe poses; anchor_idx: the
     keyframe id whose frame the submap lives in.
     """
-    keyframes = list(keyframes)
-    dev = keyframes[0].cloud.device
-    # per keyframe: xyz (3, n_pad), labels and the count, as f32 (exact
-    # for labels and counts below 2^24), all in one copy
-    flat = torch.cat([torch.cat([kf.cloud.xyz.reshape(-1), kf.cloud.label.to(torch.float32),
-                                 kf.cloud.count.to(torch.float32).reshape(1)])
-                      for kf in keyframes]).cpu().numpy()
-    T_anchor_inv = np.linalg.inv(poses[anchor_idx].astype(np.float64))
-    pts_all, lab_all, at = [], [], 0
-    for kf in keyframes:
-        m = kf.cloud.n_pad
-        xyz = flat[at:at + 3 * m].reshape(3, m)
-        lab = flat[at + 3 * m:at + 4 * m].astype(np.int32)
-        n = int(flat[at + 4 * m])
-        at += 4 * m + 1
-        T = T_anchor_inv @ poses[kf.index].astype(np.float64)
-        # a preprocessed cloud keeps its valid points first
-        pts = xyz.T[:n].astype(np.float64)
-        pts_all.append(pts @ T[:3, :3].T + T[:3, 3])
-        lab_all.append(lab[:n])
-    pts = np.concatenate(pts_all).astype(np.float32)
-    lab = np.concatenate(lab_all).astype(np.int32)
-    if voxel > 0:
-        pts, lab = voxel_downsample(pts, lab, voxel)
     n_pad = n_pad or cfg.cloud.n_pad
-    if len(pts) > n_pad:
-        sel = np.random.default_rng(0).permutation(len(pts))[:n_pad]
-        pts, lab = pts[sel], lab[sel]
+    xyz, lab = submap_points(keyframes, poses, anchor_idx, voxel, n_pad)
     # full Config: the class-major layout once per rebuild, so every align
     # against this submap skips its own sort
-    return preprocess_cloud(make_cloud(pts, lab, n_pad=n_pad, device=dev), cfg)
+    return preprocess_cloud(cloud_from_tensors(xyz, lab, n_pad), cfg)

@@ -4,18 +4,29 @@ Port of `semicp/utils/metrics.py`: JSONL per-frame records and a
 per-phase wall-clock table. `drain` is how a phase timer measures device
 work and not its enqueue: it waits for the device of every CUDA tensor
 in its argument (the JAX package's `drain` waits on the first leaf only).
+`card_line` names the card and its power limit beside a measurement.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import subprocess
 import time
 from collections import defaultdict
 from contextlib import contextmanager
 from pathlib import Path
 
 import torch
+
+
+def card_line() -> str:
+    """The first card's name and power limit, as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` prints them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
 
 
 def _cuda_devices(out, found: set) -> None:

@@ -7,10 +7,13 @@ per cell as the numpy one does (its hash differs, so the kept count may
 differ by 2%, the JAX package's own bound). The synthetic trajectory
 and scans go through each package's f32 se3_exp, so they agree to f32
 rounding: poses to 1e-5 and rendered points to 1e-4 m at 25 m range.
+The device voxel selection (`voxel_keep`) keeps the columns the numpy
+voxel_downsample keeps, exactly.
 """
 
 import numpy as np
 import pytest
+import torch
 
 from semicp.data import kitti as j_kitti
 from semicp.data import make_scene as j_make_scene
@@ -152,3 +155,48 @@ def test_trajectory_and_render_match_jax():
         np.testing.assert_array_equal(lt, lj)
         np.testing.assert_allclose(xt, xj, atol=1e-4)
     assert rt.uniform() == rj.uniform()          # the same draws, in the same order
+
+
+def kept_by_jax(xyz, valid, voxel):
+    """The columns JAX's voxel_downsample keeps of the valid ones: run on
+    the valid points with their column indices as the labels."""
+    idx = np.flatnonzero(valid)
+    return j_kitti.voxel_downsample(xyz[idx], idx, voxel)[1]
+
+
+def test_voxel_keep_matches_jax_seeded():
+    """The device selection (here on CPU tensors) keeps the columns JAX's
+    voxel_downsample keeps, in order: seeded clouds with invalid columns,
+    at three voxel sizes and at voxel 0 (every valid column)."""
+    rng = np.random.default_rng(7)
+    for trial in range(4):
+        xyz = (rng.normal(size=(4000, 3)) * 4).astype(np.float32)
+        valid = rng.uniform(size=4000) > 0.15
+        for voxel in (0.1, 0.3, 1.0, 0.0):
+            got = t_kitti.voxel_keep(torch.from_numpy(xyz.T.copy()), torch.from_numpy(valid),
+                                     voxel).numpy()
+            ref = kept_by_jax(xyz, valid, voxel) if voxel > 0 else np.flatnonzero(valid)
+            np.testing.assert_array_equal(got, ref)
+
+
+def test_voxel_keep_matches_jax_hand_built():
+    """Points on cell boundaries (exact multiples of the voxel, and one
+    float32 ulp either side), negative coordinates (floor, not truncation),
+    duplicate cells whose first point is invalid, and a key shared only by
+    invalid columns."""
+    v = np.float32(0.25)
+    edge = [0.0, 0.25, -0.25, 0.5, -0.5, 1.0]
+    pts = [[e, 0.1, -0.1] for e in edge]
+    pts += [[np.nextafter(np.float32(e), np.float32(-1)), 0.1, -0.1] for e in edge]
+    pts += [[np.nextafter(np.float32(e), np.float32(1)), 0.1, -0.1] for e in edge]
+    pts += [[-0.01, -0.01, -0.01], [-0.24, -0.24, -0.24], [-0.26, 0.0, 0.0],
+            [3.1, 3.1, 3.1], [3.2, 3.15, 3.05], [3.1, 3.1, 3.1], [-7.0, 2.0, 1.0]]
+    xyz = np.asarray(pts, np.float32)
+    valid = np.ones(len(xyz), bool)
+    valid[len(edge) * 3 + 3] = False       # the first of three points in one cell
+    valid[-1] = False                      # a cell that only an invalid point holds
+    got = t_kitti.voxel_keep(torch.from_numpy(xyz.T.copy()), torch.from_numpy(valid),
+                             float(v)).numpy()
+    ref = kept_by_jax(xyz, valid, float(v))
+    np.testing.assert_array_equal(got, ref)
+    assert len(ref) < valid.sum()          # some cells held more than one point

@@ -9,7 +9,13 @@ Tolerances:
   rtol 1e-4 and the winner's rows within 1e-5, as
   tests/test_dist_ring_schur.py holds the JAX ring to the single-device NN.
 - Distributed align: T within 1e-4 of JAX's and of the port's single-device
-  align, with the same EM iterations (tests/test_map_ba.py's pair).
+  align, with the same EM iterations (tests/test_map_ba.py's pair). On the
+  CPU its M-step is G1d's float64 moment arithmetic, where JAX all-reduces
+  f32 sums in every GN pass; over SPREAD_PAIRS more pairs both are held to
+  one EM trajectory by `semicp_torch.eval.pairs.trip_parity` (equal trip
+  counts: T within 1e-4; counts one apart: T within 1e-4 at the smaller
+  count, and the final T's within 1e-4 plus the extra pass's step), as
+  JAX's distributed align is held to its own single-device align.
 - Distributed GN: T within 1e-5, H within 1e-4 of its largest entry, as
   tests/test_torch_register.py holds the one-device M-step; G1d's moment
   M-step (its float64 mirror over the ranks) T within 1e-5, its
@@ -41,12 +47,14 @@ from semicp_torch.cli.run_slam import main as t_slam_main
 from semicp_torch.convert import cloud_from_numpy
 from semicp_torch.dist import shard_batch
 from semicp_torch.dist.mesh import Mesh, shard_bounds
+from semicp_torch.eval.pairs import trip_parity
 from semicp_torch.register.gauss_newton import gn_moments_plain
 
 K_RING, N_RING, Q_RING, GATE = 4, 2048, 1024, 2.0
 ALIGN = ["--cloud.n_pad=2048", "--cloud.num_classes=5", "--em.max_iters=12"]
 BATCH_PAIRS, BATCH_PAD = 3, 512
 GN_N = 4096
+SPREAD_PAIRS = 12
 FIELDS = ("xyz", "label", "cov6", "valid", "count")
 
 
@@ -78,6 +86,46 @@ def align_inputs(rng):
         c = semicp.preprocess_cloud(semicp.make_cloud(p, lab, n_pad=2048), cfg.cov)
         out.update({f"{tag}_{f}": np.asarray(getattr(c, f)) for f in FIELDS})
     return out, cfg
+
+
+def spread_inputs():
+    """SPREAD_PAIRS pairs like align_inputs', each from its own seed, with
+    growing offsets, 2 cm noise and 30% dropout, preprocessed by the JAX
+    package: fields spread<i>_<src|tgt>_<field>."""
+    cfg = semicp.Config().override(semicp.config.parse_overrides(ALIGN))
+    out = {"spread_pairs": SPREAD_PAIRS}
+    for i in range(SPREAD_PAIRS):
+        rng = np.random.default_rng(i)
+        tgt_pts, tgt_lab = j_make_scene(rng, n_points=1900, extent=15.0, n_classes=5)
+        tgt_lab = tgt_lab - 1
+        delta = np.array([0.25, -0.1, 0.04, 0.008, -0.015, 0.02]) * (1 + 0.25 * i)
+        src_pts, src_lab, _ = j_make_pair(rng, tgt_pts, tgt_lab, delta, noise=0.02, dropout=0.3,
+                                          n_classes=5)
+        for tag, (p, lab) in (("src", (src_pts, src_lab)), ("tgt", (tgt_pts, tgt_lab))):
+            c = semicp.preprocess_cloud(semicp.make_cloud(p, lab, n_pad=2048), cfg.cov)
+            out.update({f"spread{i}_{tag}_{f}": np.asarray(getattr(c, f)) for f in FIELDS})
+    return out
+
+
+def jax_clouds(inp, prefix):
+    """The (source, target) JAX clouds of inp's fields prefix<src|tgt>_<field>."""
+    return tuple(semicp.cloud.Cloud(**{f: jnp.asarray(inp[f"{prefix}{t}_{f}"]) for f in FIELDS})
+                 for t in ("src", "tgt"))
+
+
+def jax_runs(make_fn, cfg, fn=None):
+    """run(src, tgt, max_iters) -> (T, iterations) of make_fn(cfg with
+    em.max_iters = max_iters; the config's own where None), one function
+    kept a count (fn, where given, is the config's own)."""
+    fns = {} if fn is None else {None: fn}
+
+    def run(src, tgt, mi):
+        if mi not in fns:
+            fns[mi] = make_fn(cfg if mi is None else cfg.override({"em.max_iters": mi}))
+        res = fns[mi](src, tgt)
+        return np.asarray(res.T), int(res.iterations)
+
+    return run
 
 
 def gn_inputs(rng):
@@ -126,6 +174,7 @@ def dist_run(request, tmp_path_factory):
     inp.update(al)
     inp.update(gn_inputs(rng))
     inp.update(batch_inputs(rng))
+    inp.update(spread_inputs())
     inp["overrides"] = np.asarray(ALIGN + ["--gn.max_iters=4"])
     cfg = cfg.override({"gn.max_iters": 4})
     d = tmp_path_factory.mktemp(f"dist{w}")
@@ -140,8 +189,10 @@ def dist_run(request, tmp_path_factory):
                                                                      K_RING)]
     src, tgt = (semicp.cloud.Cloud(**{f: jnp.asarray(inp[f"{t}_{f}"]) for f in FIELDS})
                 for t in ("src", "tgt"))
-    res = j_make_dist_align_fn(mesh, cfg)(src, tgt)
+    jdist = j_make_dist_align_fn(mesh, cfg)
+    res = jdist(src, tgt)
     ref["align"] = (np.asarray(res.T), int(res.iterations))
+    ref["dist_run"] = jax_runs(lambda c: j_make_dist_align_fn(mesh, c), cfg, jdist)
     tcfg = semicp_torch.Config().override(
         semicp_torch.config.parse_overrides(list(inp["overrides"])))
     ts, tt = (cloud_from_numpy(*(inp[f"{t}_{f}"] for f in FIELDS), device="cpu")
@@ -198,9 +249,52 @@ def test_dist_align_matches_jax_and_single(dist_run, engine):
     assert np.linalg.norm(err[:3, 3]) < 0.02
 
 
+def test_dist_align_pairs_hold_the_trip_rule(dist_run):
+    """The distributed align through G1d's moment arithmetic (the CPU path)
+    over W ranks against JAX's make_dist_align_fn at D = W, on every one of
+    SPREAD_PAIRS pairs, by `trip_parity`: the port's pose after each pass
+    is read from its run's trajectory, JAX's by a run at that
+    em.max_iters. Every rank's trajectory is the same to the bit."""
+    w, inp, ref, outs, tcfg = dist_run
+    for i in range(SPREAD_PAIRS):
+        traj = outs[0][f"spread_traj{i}"]
+        for o in outs[1:]:
+            np.testing.assert_array_equal(o[f"spread_traj{i}"], traj)
+        n = len(traj) - 1
+        src, tgt = jax_clouds(inp, f"spread{i}_")
+
+        def port(mi, traj=traj, n=n):
+            k = n if mi is None else min(mi, n)
+            return traj[k], k
+
+        r = trip_parity(port, lambda mi: ref["dist_run"](src, tgt, mi), tcfg.em.trans_eps)
+        assert r["ok"], (i, r)
+
+
+def test_jax_dist_align_spread_against_single():
+    """The reference's own spread: JAX's make_dist_align_fn at W = 4 (f32
+    sums all-reduced in every GN pass) against JAX's single-device align
+    on the SPREAD_PAIRS pairs, held to one EM trajectory by `trip_parity`,
+    as the port's distributed align is. Measured on the CPU mesh: trip
+    counts 3 on one pair and 4 on eleven, equal on every pair; max |dT|
+    1.2e-7 to 1.3e-6, and 3.4e-5 on pair 8. The reordered sums move T at
+    rounding, as the moment arithmetic does; where such a move meets an
+    em_step within rounding of em.trans_eps, the trip count moves by one."""
+    inp = spread_inputs()
+    cfg = semicp.Config().override(semicp.config.parse_overrides(ALIGN))
+    dist = jax_runs(lambda c: j_make_dist_align_fn(jmesh(4), c), cfg)
+    single = jax_runs(semicp.make_align_fn, cfg)
+    for i in range(SPREAD_PAIRS):
+        src, tgt = jax_clouds(inp, f"spread{i}_")
+        r = trip_parity(lambda mi: dist(src, tgt, mi), lambda mi: single(src, tgt, mi),
+                        cfg.em.trans_eps)
+        assert r["ok"], (i, r)
+
+
 def test_gn_solve_dist_plain_matches_jax(dist_run):
     """gn_solve_dist_plain over W ranks against JAX's gn_solve(axis_name=...)
-    under shard_map; em_tail_dist on CPU tensors is its plain version."""
+    under shard_map; em_tail_dist on CPU tensors is G1d's plain version,
+    em_tail_dist_moments_plain, to the bit."""
     w, inp, ref, outs, _ = dist_run
     Tj, cj, sj, Hj = ref["gn"]
     for o in outs:
@@ -228,6 +322,7 @@ def test_gn_moments_dist_matches_jax(dist_run):
         assert int(o["mom_passes"]) == int(outs[0]["mom_passes"])
         np.testing.assert_allclose(o["mom_T"], o["gn_T"], atol=1e-5)
         np.testing.assert_allclose(o["mom_T"], ref["gn"][0], atol=1e-5)
+        np.testing.assert_array_equal(o["tail_T"], o["mom_T"])
     np.testing.assert_allclose(outs[0]["mom_row"], whole, rtol=1e-12, atol=0)
 
 

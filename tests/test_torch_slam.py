@@ -8,8 +8,11 @@ Tolerances:
 - Loop verification: each candidate is one EM align, so Z agrees to 1e-4
   as an align's T does (tests/test_torch_register.py); the accept flags
   are equal.
-- The submap's points and labels are host numpy and one sort, equal to
-  the bit; its covariances as in tests/test_torch_covariance.py.
+- The submap's points and labels: the float64 transform (one BLAS product
+  each, on the submap's device), the voxel key and a stable sort, the
+  seeded subsample and the class-major sort, equal to the bit; its
+  covariances as in tests/test_torch_covariance.py. The device fusion
+  (`submap_points`) equals its numpy plain version to the bit.
 - The whole of run_slam: every relative pose agrees to 1e-4, so positions
   chained over 16 frames to 1e-3 m; keyframes and edges are equal.
 - Where the port runs against itself (batched against serial aligns, a
@@ -41,7 +44,7 @@ from semicp_torch.convert import cloud_from_numpy, pose_graph_from_numpy
 from semicp_torch.dist import batched_align
 from semicp_torch.slam import LoopVerifier, keyframes as tkf, pose_graph as tpg
 from semicp_torch.slam.loop_closure import propose_loop_closures
-from semicp_torch.slam.submap import build_submap
+from semicp_torch.slam.submap import build_submap, submap_points, submap_points_plain
 from semicp_torch.utils.checkpoint import latest_checkpoint, save_checkpoint
 
 GRAPH_FIELDS = ("poses", "n_poses", "edge_i", "edge_j", "edge_z", "edge_info", "edge_W",
@@ -259,6 +262,21 @@ def test_build_submap_matches_jax(rng):
     c_t, c_j = st.cov6.numpy(), np.asarray(sj.cov6)
     np.testing.assert_allclose(c_t, c_j, rtol=2e-3, atol=0.2)
     assert np.isclose(c_t, c_j, rtol=2e-3, atol=2e-3).mean() > 0.995
+
+
+@pytest.mark.parametrize("voxel,n_pad", [(0.1, 512), (0.1, 1024), (0.0, 1024), (0.3, 256)])
+def test_submap_points_match_plain(rng, voxel, n_pad):
+    """The fusion of build_submap on tensors (here CPU ones) against its
+    numpy plain version: the same points and labels in the same order, to
+    the bit, where the voxel grid's count exceeds the capacity (the seeded
+    subsample) and where it fits, and with no voxel grid."""
+    _, ts, _ = keyframe_stores(rng, 4, n_pad=1024)
+    poses = np.stack([T_of([0.4 * i, 0.1 * i, 0, 0, 0, 0.05 * i]) for i in range(4)])
+    xyz, lab = submap_points(ts.keyframes[1:], poses, 3, voxel, n_pad)
+    pts, lab_p = submap_points_plain(ts.keyframes[1:], poses, 3, voxel, n_pad)
+    assert xyz.shape[1] == len(pts) <= n_pad
+    np.testing.assert_array_equal(xyz.numpy().T, pts)
+    np.testing.assert_array_equal(lab.numpy(), lab_p)
 
 
 def jax_state(rng):

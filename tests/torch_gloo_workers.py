@@ -84,17 +84,18 @@ def _cols(a, mesh):
 
 
 def task_dist(mesh, inp) -> dict:
-    """The ring NN (three engines), the distributed align (two engines),
-    the distributed GN and its tail, G1d's moment M-step, and a batch of
-    pairs over the mesh."""
+    """The ring NN (three engines), the distributed align (two engines, and
+    the trajectories of the spread pairs), the distributed GN and its tail,
+    G1d's moment M-step, and a batch of pairs over the mesh."""
     from semicp_torch.cloud import make_cloud, preprocess_cloud
     from semicp_torch.config import GNConfig
+    from semicp_torch.dist import align_dist
     from semicp_torch.dist.align_dist import make_dist_align_fn
     from semicp_torch.dist.batch import batched_align
     from semicp_torch.dist.ring_corr import make_ring_nn
     from semicp_torch.register.gauss_newton import (
         em_tail_dist,
-        em_tail_dist_plain,
+        em_tail_dist_moments_plain,
         gn_moments_plain,
         gn_solve_dist_plain,
         gn_solve_moments_plain,
@@ -113,6 +114,25 @@ def task_dist(mesh, inp) -> dict:
         res = make_dist_align_fn(mesh, cfg, engine=eng)(src, tgt)
         out[f"align_T_{eng}"], out[f"align_it_{eng}"] = res.T, res.iterations
         out[f"align_n_corr_{eng}"] = res.n_corr
+    # each spread pair's trajectory: the initial pose, then the pose
+    # after each EM pass (em_tail_dist's T)
+    traj = []
+    orig = align_dist.em_tail_dist
+
+    def recording(*a, **k):
+        tail = orig(*a, **k)
+        traj.append(tail.T)
+        return tail
+
+    align_dist.em_tail_dist = recording
+    try:
+        for i in range(int(inp["spread_pairs"])):
+            traj[:] = [torch.eye(4)]
+            make_dist_align_fn(mesh, cfg)(_cloud(inp, f"spread{i}_src"),
+                                          _cloud(inp, f"spread{i}_tgt"))
+            out[f"spread_traj{i}"] = torch.stack(traj)
+    finally:
+        align_dist.em_tail_dist = orig
 
     gcfg = GNConfig(**{k: float(v) if k != "max_iters" else int(v)
                        for k, v in zip(inp["gn_keys"], inp["gn_vals"])})
@@ -122,9 +142,10 @@ def task_dist(mesh, inp) -> dict:
     out["gn_T"], out["gn_cost"], out["gn_step"], out["gn_H"] = gn_solve_dist_plain(
         T0, z, a6, b3, c, gcfg, mesh)
     tail = em_tail_dist(T0, z, cov6, a6, b3, c, wsum, gcfg, mesh)
-    ref = em_tail_dist_plain(T0, z, cov6, a6, b3, c, wsum, gcfg, mesh)
+    ref = em_tail_dist_moments_plain(T0, z, cov6, a6, b3, c, wsum, gcfg, mesh)
     out["tail_equal"] = all(bool(torch.equal(a, b)) for a, b in zip(tail, ref))
     out["tail_n_corr"], out["tail_em_step"] = tail.n_corr, tail.em_step
+    out["tail_T"] = tail.T
     # G1d's M-step on its float64 mirror: this rank's moment row,
     # all-reduced, then every GN pass from the row
     row = mesh.all_reduce(gn_moments_plain(z, a6, b3, c, wsum))
