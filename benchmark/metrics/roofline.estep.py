@@ -1,0 +1,8 @@
+"""Stage "estep" (stages/estep/): its bound at the card's peaks over the device
+time of its kernels in the profiled session, %."""
+
+from benchmark.roofline import stage_share
+
+
+def read(run):
+    return stage_share(run, "estep")
