@@ -23,6 +23,7 @@ from semicp_torch.data import (
     remap_semantickitti,
 )
 from semicp_torch.data.kitti import voxel_downsample
+from semicp_torch.utils.metrics import span
 
 
 def setup_device(name: str) -> torch.device:
@@ -102,7 +103,8 @@ def to_device_cloud(pts, lab, cfg: Config, device) -> Cloud:
     which selects the sparse moments (K1 on CUDA) here and lets align skip
     its own sort. Labels are checked against cfg.cloud.num_classes on the
     host first: `.pcd` XYZL files carry arbitrary uint32 labels, and an
-    out-of-range label would corrupt the per-tile class ranges.
+    out-of-range label would corrupt the per-tile class ranges. The
+    upload is the span `preprocess.upload`.
     """
     lab = np.asarray(lab)
     if lab.size and int(lab.max()) >= cfg.cloud.num_classes:
@@ -110,7 +112,14 @@ def to_device_cloud(pts, lab, cfg: Config, device) -> Cloud:
             f"label {int(lab.max())} >= cloud.num_classes={cfg.cloud.num_classes}; "
             "remap labels into [0, K) first (raw un-remapped SemanticKITTI ids in a "
             ".pcd file?)")
-    return preprocess_cloud(make_cloud(pts, lab, n_pad=cfg.cloud.n_pad, device=device), cfg)
+    # handed on, not held here: preprocess_cloud frees the unsorted cloud
+    # once it has sorted it
+    return preprocess_cloud(_upload(pts, lab, cfg, device), cfg)
+
+
+def _upload(pts, lab, cfg: Config, device) -> Cloud:
+    with span("preprocess.upload"):
+        return make_cloud(pts, lab, n_pad=cfg.cloud.n_pad, device=device)
 
 
 def sequence_frames(seq_dir: str | Path):

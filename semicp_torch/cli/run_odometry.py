@@ -14,6 +14,13 @@ PipelinedAligner). The scan loader runs --prefetch scans ahead in a
 thread that does numpy work only; upload and preprocess stay on the main
 thread.
 
+The session's PhaseTimer (the result's "timing", the table on stderr) is
+installed for the run: the driver's spans `session_setup`, `scan_wait`,
+`preprocess`, `align`, `write_poses` and `session_finish`, and the
+library's `preprocess.upload`, `.sort`, `.moments`, `em.wait` and the
+counter `align.retry`. Under a torch profiler each span is also a
+`record_function` of its name.
+
 Usage:
   python -m semicp_torch.cli.run_odometry --seq /path/to/sequence [--voxel 0.3]
       [--out poses.txt] [--jsonl metrics.jsonl] [--resume] [--max-frames N]
@@ -41,7 +48,7 @@ from semicp_torch.config import Config, parse_overrides
 from semicp_torch.data import load_kitti_calib, load_kitti_poses, save_kitti_poses
 from semicp_torch.register.em_icp import PipelinedAligner
 from semicp_torch.slam.pipeline import ScanPrefetcher
-from semicp_torch.utils import MetricsLogger, PhaseTimer, drain
+from semicp_torch.utils import MetricsLogger, PhaseTimer, drain, installed
 
 
 def build_parser():
@@ -88,48 +95,58 @@ def synthetic_frames(n_frames, n_points, seed=0):
 
 
 def run_odometry(args, cfg: Config):
-    dev = setup_device(args.device)
+    """One session: (the result, its PhaseTimer). The timer is installed
+    for the session, so the spans and counters of the library code it runs
+    (preprocess.*, em.wait, align.retry) land in its table."""
     timer = PhaseTimer()
-    aligner = PipelinedAligner(cfg)
+    timer.count("align.retry", 0)
+    with installed(timer):
+        return _odometry(args, cfg, timer), timer
 
-    poses = [np.eye(4)]
-    gt_traj = None
-    out_path = Path(args.out)
 
-    if args.synthetic:
-        frames = []
-        for (pts, lab), traj in synthetic_frames(args.synthetic, args.n_points):
-            frames.append((pts, lab))
-            gt_traj = traj
-        loader = iter(frames)
+def _odometry(args, cfg: Config, timer: PhaseTimer) -> dict:
+    with timer.phase("session_setup"):
+        dev = setup_device(args.device)
+        aligner = PipelinedAligner(cfg)
 
-        def next_scan():
-            return next(loader, None)
-    else:
-        seq = sequence_frames(args.seq)
-        if args.max_frames:
-            seq = seq[: args.max_frames]
-        it = iter(seq)
+        poses = [np.eye(4)]
+        gt_traj = None
+        out_path = Path(args.out)
 
-        def next_scan():
-            item = next(it, None)
-            if item is None:
-                return None
-            b, lbl = item
-            return load_scan_np(b, lbl, args.voxel)
+        if args.synthetic:
+            frames = []
+            for (pts, lab), traj in synthetic_frames(args.synthetic, args.n_points):
+                frames.append((pts, lab))
+                gt_traj = traj
+            loader = iter(frames)
 
-        if args.gt:
-            gt_traj = load_gt_traj(args.gt, args.calib)
+            def next_scan():
+                return next(loader, None)
+        else:
+            seq = sequence_frames(args.seq)
+            if args.max_frames:
+                seq = seq[: args.max_frames]
+            it = iter(seq)
 
-    start_frame = 0
-    if args.resume and out_path.exists():
-        existing = np.loadtxt(out_path).reshape(-1, 3, 4)
-        poses = [np.vstack([p, [0, 0, 0, 1]]) for p in existing]
-        start_frame = len(poses) - 1
-        print(f"resuming at frame {start_frame}", file=sys.stderr)
+            def next_scan():
+                item = next(it, None)
+                if item is None:
+                    return None
+                b, lbl = item
+                return load_scan_np(b, lbl, args.voxel)
 
-    ml = MetricsLogger(args.jsonl)
-    pf = ScanPrefetcher(next_scan, depth=max(args.prefetch, 0))
+            if args.gt:
+                gt_traj = load_gt_traj(args.gt, args.calib)
+
+        start_frame = 0
+        if args.resume and out_path.exists():
+            existing = np.loadtxt(out_path).reshape(-1, 3, 4)
+            poses = [np.vstack([p, [0, 0, 0, 1]]) for p in existing]
+            start_frame = len(poses) - 1
+            print(f"resuming at frame {start_frame}", file=sys.stderr)
+
+        ml = MetricsLogger(args.jsonl)
+        pf = ScanPrefetcher(next_scan, depth=max(args.prefetch, 0))
     serial = args.prefetch == 0
     prev_cloud = None
     pending_meta = None   # (frame, n_points) of the in-flight pair
@@ -141,10 +158,12 @@ def run_odometry(args, cfg: Config):
         poses.append(poses[-1] @ res.T.numpy().astype(np.float64))
         ml.log(frame=f, iterations=int(res.iterations), converged=bool(res.converged),
                cost=float(res.cost), n_corr=float(res.n_corr), n_points=n_pts)
-        save_kitti_poses(out_path, np.asarray(poses))
+        with timer.phase("write_poses"):
+            save_kitti_poses(out_path, np.asarray(poses))
 
     while True:
-        scan = pf.get()
+        with timer.phase("scan_wait"):
+            scan = pf.get()
         if scan is None:
             break
         pts, lab = scan
@@ -167,12 +186,12 @@ def run_odometry(args, cfg: Config):
         prev_cloud = cloud
         frame += 1
 
-    with timer.phase("align"):
-        res_last = aligner.flush()
-    if res_last is not None:
-        chain(res_last, pending_meta)
-
-    ml.close()
+    with timer.phase("session_finish"):
+        with timer.phase("align"):
+            res_last = aligner.flush()
+        if res_last is not None:
+            chain(res_last, pending_meta)
+        ml.close()
     out = {"frames": len(poses), "out": str(out_path), "device": device_name(dev),
            "timing": timer.summary()}
     if gt_traj is not None and len(poses) > 2:
@@ -182,7 +201,7 @@ def run_odometry(args, cfg: Config):
         gt = gt_traj[: len(poses)]
         out["ate_rmse_m"] = ate_rmse(est, gt)
         out["rpe_trans_m"], out["rpe_rot_rad"] = rpe(est, gt)
-    return out, timer
+    return out
 
 
 def main(argv=None):

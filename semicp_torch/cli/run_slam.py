@@ -25,6 +25,15 @@ everything the host reads of it, register/em_icp.py
 `make_robust_align_fn`); the pose graph lives on the host.
 The warm start goes up from pinned memory without a wait.
 
+The session's PhaseTimer (the result's "timing", the table on stderr) is
+installed for the run: the driver's spans `session_setup`, `scan_wait`,
+`preprocess`, `odometry`, `keyframe` (each frame's bookkeeping),
+`submap`, `loop_search` and `loop_verify`, `pgo` (after an accepted loop
+edge), `session_finish` with `pgo_final` and `write_poses`, and the
+library's `preprocess.*`, `em.wait`, `pgo.*` and the counter
+`align.retry`. Under a torch profiler each span is also a
+`record_function` of its name.
+
 With --dist (the fourth configuration) the submap becomes map blocks
 sharded over the mesh's ranks (dist/mesh.py; on one card a group of one
 under NCCL): scan-to-map odometry runs the distributed EM align (the ring
@@ -71,7 +80,7 @@ from semicp_torch.slam.loop_closure import (
 )
 from semicp_torch.slam.pose_graph import PoseGraph, add_edge, add_pose, optimize_pose_graph
 from semicp_torch.slam.submap import build_submap
-from semicp_torch.utils import MetricsLogger, PhaseTimer, drain
+from semicp_torch.utils import MetricsLogger, PhaseTimer, drain, installed
 
 
 def build_parser():
@@ -211,86 +220,97 @@ def _pgo(graph, cfg: Config, dev, mesh):
 
 
 def run_slam(args, cfg: Config):
-    dev = setup_device(args.device)
+    """One session: (the result, its PhaseTimer). The timer is installed
+    for the session, so the spans and counters of the library code it runs
+    (preprocess.*, em.wait, align.retry, pgo.*) land in its table."""
     timer = PhaseTimer()
-    align_fn = make_robust_align_fn(cfg)
-    verifier = LoopVerifier(cfg)
-    mesh = map_align_fn = None
-    if args.dist:
-        from semicp_torch.dist.align_dist import make_dist_align_fn
-        from semicp_torch.dist.mesh import make_mesh
+    timer.count("align.retry", 0)
+    with installed(timer):
+        return _slam(args, cfg, timer), timer
 
-        args.scan_to_map = True
-        mesh = make_mesh(dev)
-        dev = mesh.device
-        map_align_fn = make_dist_align_fn(mesh, cfg)
-    ml = MetricsLogger(args.jsonl)
 
-    gt_traj = None
-    if args.synthetic:
-        frames, gt_traj = synthetic_loop_frames(args.synthetic, args.n_points,
-                                                closed=args.loop, seed=args.seed)
-        frame_iter = iter(frames)
+def _slam(args, cfg: Config, timer: PhaseTimer) -> dict:
+    with timer.phase("session_setup"):
+        dev = setup_device(args.device)
+        align_fn = make_robust_align_fn(cfg)
+        verifier = LoopVerifier(cfg)
+        mesh = map_align_fn = None
+        if args.dist:
+            from semicp_torch.dist.align_dist import make_dist_align_fn
+            from semicp_torch.dist.mesh import make_mesh
 
-        def next_scan():
-            return next(frame_iter, None)
-    else:
-        if args.gt:
-            from semicp_torch.cli.run_odometry import load_gt_traj
+            args.scan_to_map = True
+            mesh = make_mesh(dev)
+            dev = mesh.device
+            map_align_fn = make_dist_align_fn(mesh, cfg)
+        ml = MetricsLogger(args.jsonl)
 
-            gt_traj = load_gt_traj(args.gt, args.calib)
-        seq = sequence_frames(args.seq)
-        if args.max_frames:
-            seq = seq[: args.max_frames]
-        it = iter(seq)
+        gt_traj = None
+        if args.synthetic:
+            frames, gt_traj = synthetic_loop_frames(args.synthetic, args.n_points,
+                                                    closed=args.loop, seed=args.seed)
+            frame_iter = iter(frames)
 
-        def next_scan():
-            item = next(it, None)
-            if item is None:
-                return None
-            return load_scan_np(item[0], item[1], args.voxel)
+            def next_scan():
+                return next(frame_iter, None)
+        else:
+            if args.gt:
+                from semicp_torch.cli.run_odometry import load_gt_traj
 
-    graph = PoseGraph.empty(args.max_keyframes, args.max_edges)
-    store = KeyframeStore()
-    anchors: list[tuple[int, np.ndarray]] = []  # per frame: (kf_idx, T_kf_frame)
-    T_now = np.eye(4)
-    prev_cloud = None
-    T_rel_prev = np.eye(4, dtype=np.float32)
-    frame = 0
-    n_loop_edges = 0
-    submap = None            # (anchor kf index, fused Cloud) for --scan-to-map
-    bias = _exp([0, 0, 0, 0, 0, args.drift]).astype(np.float64) if args.drift else None
+                gt_traj = load_gt_traj(args.gt, args.calib)
+            seq = sequence_frames(args.seq)
+            if args.max_frames:
+                seq = seq[: args.max_frames]
+            it = iter(seq)
 
-    def rebuild_submap():
-        """Fuse the last submap_keyframes keyframe clouds into the newest
-        keyframe's frame. Rebuilt per keyframe; poses a PGO corrects are
-        taken up at the next rebuild."""
-        poses_cur = graph.poses.astype(np.float64)
-        kfs = store.keyframes[-cfg.slam.submap_keyframes:]
-        anchor = store[-1].index
-        with timer.phase("submap"):
-            sm = build_submap(kfs, poses_cur, anchor, cfg,
-                              voxel=args.voxel if args.seq else 0.1)
-            drain(sm.cov6)
-        return anchor, sm
+            def next_scan():
+                item = next(it, None)
+                if item is None:
+                    return None
+                return load_scan_np(item[0], item[1], args.voxel)
 
-    start_frame = 0
-    if args.resume and args.checkpoint_dir:
-        from semicp_torch.utils.checkpoint import latest_checkpoint
+        graph = PoseGraph.empty(args.max_keyframes, args.max_edges)
+        store = KeyframeStore()
+        anchors: list[tuple[int, np.ndarray]] = []  # per frame: (kf_idx, T_kf_frame)
+        T_now = np.eye(4)
+        prev_cloud = None
+        T_rel_prev = np.eye(4, dtype=np.float32)
+        frame = 0
+        n_loop_edges = 0
+        submap = None            # (anchor kf index, fused Cloud) for --scan-to-map
+        bias = _exp([0, 0, 0, 0, 0, args.drift]).astype(np.float64) if args.drift else None
 
-        step, state = latest_checkpoint(args.checkpoint_dir)
-        if state is not None:
-            graph, store, anchors, T_now, T_rel_prev, prev_cloud, start_frame = \
-                _restore_state(state, cfg, dev)
-            frame = start_frame
-            if args.scan_to_map and len(store):
-                submap = rebuild_submap()
-            print(f"resumed at frame {start_frame} ({len(store)} keyframes, "
-                  f"{graph.n_edges} edges)", file=sys.stderr)
+        def rebuild_submap():
+            """Fuse the last submap_keyframes keyframe clouds into the newest
+            keyframe's frame. Rebuilt per keyframe; poses a PGO corrects are
+            taken up at the next rebuild."""
+            poses_cur = graph.poses.astype(np.float64)
+            kfs = store.keyframes[-cfg.slam.submap_keyframes:]
+            anchor = store[-1].index
+            with timer.phase("submap"):
+                sm = build_submap(kfs, poses_cur, anchor, cfg,
+                                  voxel=args.voxel if args.seq else 0.1)
+                drain(sm.cov6)
+            return anchor, sm
+
+        start_frame = 0
+        if args.resume and args.checkpoint_dir:
+            from semicp_torch.utils.checkpoint import latest_checkpoint
+
+            step, state = latest_checkpoint(args.checkpoint_dir)
+            if state is not None:
+                graph, store, anchors, T_now, T_rel_prev, prev_cloud, start_frame = \
+                    _restore_state(state, cfg, dev)
+                frame = start_frame
+                if args.scan_to_map and len(store):
+                    submap = rebuild_submap()
+                print(f"resumed at frame {start_frame} ({len(store)} keyframes, "
+                      f"{graph.n_edges} edges)", file=sys.stderr)
 
     consumed = 0
     while True:
-        scan = next_scan()
+        with timer.phase("scan_wait"):
+            scan = next_scan()
         if scan is None:
             break
         if consumed < start_frame:
@@ -303,9 +323,10 @@ def run_slam(args, cfg: Config):
             cloud = to_device_cloud(pts, lab, cfg, dev)
 
         if prev_cloud is None:
-            desc = semantic_descriptor(lab, cfg.cloud.num_classes, pts)
-            store.add(frame, T_now, cloud, desc)
-            graph = add_pose(graph, T_now.astype(np.float32))
+            with timer.phase("keyframe"):
+                desc = semantic_descriptor(lab, cfg.cloud.num_classes, pts)
+                store.add(frame, T_now, cloud, desc)
+                graph = add_pose(graph, T_now.astype(np.float32))
             anchors.append((0, np.eye(4)))
             if args.scan_to_map:
                 submap = rebuild_submap()
@@ -329,38 +350,45 @@ def run_slam(args, cfg: Config):
                 else:
                     res = align_fn(cloud, prev_cloud, _upload_pose(T_rel_prev, dev))
                     T_rel = res.T.numpy().astype(np.float64)
-            T_rel_prev = T_rel.astype(np.float32)
-            if bias is not None:
-                # simulated biased odometry: a per-frame yaw bias (a constant
-                # translational bias on a closed loop is a global rotation,
-                # which the rigid ATE alignment absorbs)
-                T_rel = T_rel @ bias
-            T_now = T_now @ T_rel
-            ml.log(frame=frame, kind="odom", iters=int(res.iterations),
-                   cost=float(res.cost), n_corr=float(res.n_corr))
+            with timer.phase("keyframe"):
+                # every frame: the running pose, its record and anchor, the
+                # keyframe decision; when due, the keyframe and its edge
+                T_rel_prev = T_rel.astype(np.float32)
+                if bias is not None:
+                    # simulated biased odometry: a per-frame yaw bias (a constant
+                    # translational bias on a closed loop is a global rotation,
+                    # which the rigid ATE alignment absorbs)
+                    T_rel = T_rel @ bias
+                T_now = T_now @ T_rel
+                ml.log(frame=frame, kind="odom", iters=int(res.iterations),
+                       cost=float(res.cost), n_corr=float(res.n_corr))
 
-            kf_last = store[-1]
-            last_kf_pose = graph.poses[kf_last.index].astype(np.float64)
-            anchors.append((kf_last.index, np.linalg.inv(last_kf_pose) @ T_now))
+                kf_last = store[-1]
+                last_kf_pose = graph.poses[kf_last.index].astype(np.float64)
+                anchors.append((kf_last.index, np.linalg.inv(last_kf_pose) @ T_now))
 
-            if keyframe_due(last_kf_pose, T_now, cfg.slam):
-                desc = semantic_descriptor(lab, cfg.cloud.num_classes, pts)
-                kf = store.add(frame, T_now, cloud, desc)
-                graph = add_pose(graph, T_now.astype(np.float32))
-                Z = np.linalg.inv(last_kf_pose) @ T_now
-                H = res.H.numpy()
-                graph = add_edge(graph, kf_last.index, kf.index, Z.astype(np.float32),
-                                 edge_info_from_hessian(H), H=H)
+                kf = None
+                if keyframe_due(last_kf_pose, T_now, cfg.slam):
+                    desc = semantic_descriptor(lab, cfg.cloud.num_classes, pts)
+                    kf = store.add(frame, T_now, cloud, desc)
+                    graph = add_pose(graph, T_now.astype(np.float32))
+                    Z = np.linalg.inv(last_kf_pose) @ T_now
+                    H = res.H.numpy()
+                    graph = add_edge(graph, kf_last.index, kf.index, Z.astype(np.float32),
+                                     edge_info_from_hessian(H), H=H)
+            if kf is not None:
                 if args.scan_to_map:
                     submap = rebuild_submap()
 
                 with timer.phase("loop_search"):
                     poses_now = graph.poses.astype(np.float64)
                     cands = propose_loop_closures(store, kf, poses_now, cfg)
+                    with timer.phase("loop_verify"):
+                        # every candidate verified in one batch
+                        verified = verifier.verify(store, cands[:cfg.slam.lc_max_candidates],
+                                                   kf.index, poses_now)
                     accepted = []
-                    # every candidate verified in one batch
-                    for c, ok, Zl, info, Hl in verifier.verify(
-                            store, cands[:cfg.slam.lc_max_candidates], kf.index, poses_now):
+                    for c, ok, Zl, info, Hl in verified:
                         if ok:
                             graph = add_edge(graph, c, kf.index, Zl.astype(np.float32),
                                              info, H=Hl)
@@ -384,23 +412,26 @@ def run_slam(args, cfg: Config):
         prev_cloud = cloud
         frame += 1
 
-    # final PGO + trajectory recomposition against optimized keyframe poses
-    if graph.n_edges > 0:
-        graph = _pgo(graph, cfg, dev, mesh)
-    final_kf = graph.poses.astype(np.float64)
-    ba_stats = None
-    if args.dist and len(store) >= 2:
-        # the fourth configuration's closer: the keyframe poses refined
-        # against the fused world map by the Schur BA over the mesh
-        from semicp_torch.slam.map_ba import refine_keyframes
+    with timer.phase("session_finish"):
+        # final PGO + trajectory recomposition against optimized keyframe poses
+        if graph.n_edges > 0:
+            with timer.phase("pgo_final"):
+                graph = _pgo(graph, cfg, dev, mesh)
+        final_kf = graph.poses.astype(np.float64)
+        ba_stats = None
+        if args.dist and len(store) >= 2:
+            # the fourth configuration's closer: the keyframe poses refined
+            # against the fused world map by the Schur BA over the mesh
+            from semicp_torch.slam.map_ba import refine_keyframes
 
-        with timer.phase("map_ba"):
-            final_kf, ba_stats = refine_keyframes(store, final_kf, cfg, mesh=mesh,
-                                                  voxel=args.voxel if args.seq else 0.1)
-        ml.log(frame=frame, kind="map_ba", **ba_stats)
-    traj = np.stack([final_kf[a] @ rel for a, rel in anchors])
-    save_kitti_poses(args.out, traj)
-    ml.close()
+            with timer.phase("map_ba"):
+                final_kf, ba_stats = refine_keyframes(store, final_kf, cfg, mesh=mesh,
+                                                      voxel=args.voxel if args.seq else 0.1)
+            ml.log(frame=frame, kind="map_ba", **ba_stats)
+        traj = np.stack([final_kf[a] @ rel for a, rel in anchors])
+        with timer.phase("write_poses"):
+            save_kitti_poses(args.out, traj)
+        ml.close()
 
     out = {"frames": len(traj), "keyframes": len(store), "edges": graph.n_edges,
            "loop_edges": n_loop_edges, "out": str(args.out), "device": device_name(dev),
@@ -413,7 +444,7 @@ def run_slam(args, cfg: Config):
         gt = gt_traj[: len(traj)]
         out["ate_rmse_m"] = ate_rmse(traj, gt)
         out["rpe_trans_m"], out["rpe_rot_rad"] = rpe(traj, gt)
-    return out, timer
+    return out
 
 
 def main(argv=None):

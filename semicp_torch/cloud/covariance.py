@@ -25,6 +25,7 @@ from semicp_torch.config import CovConfig
 from semicp_torch.corr.bruteforce import knn_self
 from semicp_torch.corr.layout import LAYOUT_CM, sort_cloud_cm
 from semicp_torch.geom import sym3
+from semicp_torch.utils.metrics import span
 
 
 def _nanmedian(x):
@@ -131,13 +132,17 @@ def preprocess_cloud(cloud: Cloud, cfg, class_aware: bool = True) -> Cloud:
     Morton layout (one sort shared by the moments kernel here and the
     nearest-neighbour kernel inside align). With a bare `CovConfig`,
     the layout is left as it is and the dense moments run over all pairs
-    (kernel K5 on CUDA), as they do for `class_aware=False`.
+    (kernel K5 on CUDA), as they do for `class_aware=False`. The sort and
+    the covariances are the spans `preprocess.sort` and
+    `preprocess.moments`.
     """
     num_classes = None
     if hasattr(cfg, "cov"):                  # full Config
         if cloud.layout != LAYOUT_CM:
-            cloud = sort_cloud_cm(cloud, cfg.cloud.num_classes, cfg.corr.cell)
+            with span("preprocess.sort"):
+                cloud = sort_cloud_cm(cloud, cfg.cloud.num_classes, cfg.corr.cell)
         num_classes = cfg.cloud.num_classes
         cfg = cfg.cov
-    return cloud.replace(cov6=estimate_covariances(cloud, cfg, class_aware,
-                                                   num_classes=num_classes))
+    with span("preprocess.moments"):
+        cov6 = estimate_covariances(cloud, cfg, class_aware, num_classes=num_classes)
+    return cloud.replace(cov6=cov6)

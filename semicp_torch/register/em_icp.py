@@ -15,7 +15,9 @@ Port of `semicp/register/em_icp.py` (the pairwise path). Each EM pass:
   check:  ||log(T_new T_old^-1)|| < trans_eps
 
 The JAX `while_loop` becomes a host loop whose only device sync is the
-convergence flag, read once per EM pass. Everything else is queued
+convergence flag, read once per EM pass. The host's waits on the device,
+that read and the result's copy (`_to_host`), are the span `em.wait`; a
+health check's re-solve counts one `align.retry`. Everything else is queued
 without waiting on the device: G1 keeps the pose and loop state on the
 device, and the host never reads them. On CUDA an EM pass is the E-step's
 kernels (K2 or K4, then K3; or K6), G1 and the flag.
@@ -31,6 +33,7 @@ versions. The sparse engine runs the fused E-step (K6) where
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass
 
 import torch
@@ -47,6 +50,7 @@ from semicp_torch.corr.nn_sparse import (
 from semicp_torch.register.estep import estep_reduce
 from semicp_torch.register.fused import estep_sparse_fused
 from semicp_torch.register.gauss_newton import em_tail, move_source, tail_outputs
+from semicp_torch.utils.metrics import count, elapsed
 
 ENGINES = ("auto", "dense", "sparse", "xla")
 
@@ -156,7 +160,10 @@ def _align(src: Cloud, tgt: Cloud, T0, gate: float, max_iters: int, cfg: Config,
         T, cost, _, H, step, n_corr, moved, rc = em_tail(T, src.xyz, src.cov6, a6, b3, c,
                                                          wsum, cfg.gn, out[it % 2])
         it += 1
-        if not bool(step > cfg.em.trans_eps):   # the one sync per EM pass
+        t0 = time.perf_counter()
+        go_on = bool(step > cfg.em.trans_eps)   # the one sync per EM pass
+        elapsed("em.wait", t0)
+        if not go_on:
             break
     return AlignResult(
         T=T,
@@ -200,7 +207,10 @@ def _to_host(res: AlignResult, src: Cloud, tgt: Cloud):
     n_expect = torch.minimum(src.count, tgt.count).to(torch.float32)
     flat = torch.cat([res.T.reshape(16), res.H.reshape(36), torch.stack([
         res.iterations.to(torch.float32), res.converged.to(torch.float32),
-        res.cost, res.n_corr, n_expect])]).cpu()
+        res.cost, res.n_corr, n_expect])])
+    t0 = time.perf_counter()
+    flat = flat.cpu()
+    elapsed("em.wait", t0)
     host = AlignResult(T=flat[:16].reshape(4, 4), iterations=flat[52].to(torch.int32),
                        converged=flat[53] > 0.5, cost=flat[54], n_corr=flat[55],
                        H=flat[16:52].reshape(6, 6))
@@ -230,6 +240,7 @@ def make_robust_align_fn(cfg: Config):
         host, n_expect = _to_host(base(src, tgt, T0, gate=gate, max_iters=max_iters), src, tgt)
         if frac <= 0.0 or T0 is None or _healthy(host, n_expect, frac):
             return host
+        count("align.retry")
         host2 = _to_host(base(src, tgt, None, gate=gate, max_iters=max_iters), src, tgt)[0]
         return host2 if float(host2.n_corr) > float(host.n_corr) else host
 
@@ -280,6 +291,7 @@ class PipelinedAligner:
         host, n_expect = _to_host(res, src, tgt)
         if self._frac <= 0.0 or T0 is None or _healthy(host, n_expect, self._frac):
             return host
+        count("align.retry")
         host2 = _to_host(self._base(src, tgt, None), src, tgt)[0]
         return host2 if float(host2.n_corr) > float(host.n_corr) else host
 

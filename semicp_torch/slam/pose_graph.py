@@ -35,6 +35,7 @@ import torch
 
 from semicp_torch.config import SLAMConfig
 from semicp_torch.geom.se3 import se3_adjoint, se3_exp, se3_inverse, se3_log
+from semicp_torch.utils.metrics import span
 
 
 @dataclass(frozen=True)
@@ -211,28 +212,30 @@ def lm_loop_graph(poses, lam, edges: dict, huber: float, iters: int):
     capture fails: nothing falls back to the eager loop."""
     if iters <= 0:
         return poses, lam
-    main = torch.cuda.current_stream(poses.device)
-    side = torch.cuda.Stream(poses.device)
-    graph = torch.cuda.CUDAGraph()
-    saved = torch.backends.cuda.preferred_linalg_library()
-    torch.backends.cuda.preferred_linalg_library("cusolver")
-    try:
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            poses, lam = lm_step(poses, lam, edges, huber)
-            if iters > 1:
-                graph.capture_begin(capture_error_mode="thread_local")
-                try:
-                    p, lm = lm_step(poses, lam, edges, huber)
-                    poses.copy_(p)
-                    lam.copy_(lm)
-                finally:
-                    graph.capture_end()
-        main.wait_stream(side)
-    finally:
-        torch.backends.cuda.preferred_linalg_library(saved)
-    for _ in range(iters - 1):
-        graph.replay()
+    with span("pgo.capture"):
+        main = torch.cuda.current_stream(poses.device)
+        side = torch.cuda.Stream(poses.device)
+        graph = torch.cuda.CUDAGraph()
+        saved = torch.backends.cuda.preferred_linalg_library()
+        torch.backends.cuda.preferred_linalg_library("cusolver")
+        try:
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                poses, lam = lm_step(poses, lam, edges, huber)
+                if iters > 1:
+                    graph.capture_begin(capture_error_mode="thread_local")
+                    try:
+                        p, lm = lm_step(poses, lam, edges, huber)
+                        poses.copy_(p)
+                        lam.copy_(lm)
+                    finally:
+                        graph.capture_end()
+            main.wait_stream(side)
+        finally:
+            torch.backends.cuda.preferred_linalg_library(saved)
+    with span("pgo.replay"):
+        for _ in range(iters - 1):
+            graph.replay()
     return poses, lam
 
 
@@ -245,17 +248,23 @@ def optimize_pose_graph(graph: PoseGraph, cfg: SLAMConfig, device="cuda") -> Pos
     by elimination, not by a huge prior, so H stays well-conditioned in
     f32; damping is Marquardt-scaled, H + diag(lam * diag(H) + 1e-6); a
     step is taken only where the robust cost decreases, and a rejected
-    step raises lam. Returns the graph with its poses replaced.
+    step raises lam. Returns the graph with its poses replaced. Its spans:
+    `pgo.upload` (the graph to the device), `pgo.capture` and
+    `pgo.replay` (on the card: the eager first iteration and the capture,
+    then the replays' enqueue) and `pgo.readback` (the poses' copy back,
+    which waits for the replays).
     """
     if graph.n_poses == 0:
         return graph
-    poses, edges = device_graph(graph, device)
-    edges = normalized_info(edges)
-    lam = torch.full((), 1e-4, dtype=torch.float32, device=poses.device)
+    with span("pgo.upload"):
+        poses, edges = device_graph(graph, device)
+        edges = normalized_info(edges)
+        lam = torch.full((), 1e-4, dtype=torch.float32, device=poses.device)
     loop = lm_loop_graph if poses.is_cuda else lm_loop
     poses, _ = loop(poses, lam, edges, cfg.pgo_huber, cfg.pgo_iters)
     out = graph.poses.copy()
-    out[:graph.n_poses] = poses.cpu().numpy()
+    with span("pgo.readback"):
+        out[:graph.n_poses] = poses.cpu().numpy()
     return graph.replace(poses=out)
 
 

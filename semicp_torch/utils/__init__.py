@@ -1,1 +1,9 @@
-from semicp_torch.utils.metrics import MetricsLogger, PhaseTimer, drain  # noqa: F401
+from semicp_torch.utils.metrics import (  # noqa: F401
+    MetricsLogger,
+    PhaseTimer,
+    count,
+    drain,
+    elapsed,
+    installed,
+    span,
+)

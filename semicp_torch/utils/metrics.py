@@ -1,10 +1,17 @@
-"""Structured metrics and phase timing.
+"""Structured metrics and the port's one tracer.
 
 Port of `semicp/utils/metrics.py`: JSONL per-frame records and a
-per-phase wall-clock table. `drain` is how a phase timer measures device
-work and not its enqueue: it waits for the device of every CUDA tensor
-in its argument (the JAX package's `drain` waits on the first leaf only).
-`card_line` names the card and its power limit beside a measurement.
+per-span wall-clock table (`PhaseTimer`). `drain` is how a phase timer
+measures device work and not its enqueue: it waits for the device of
+every CUDA tensor in its argument (the JAX package's `drain` waits on the
+first leaf only). `card_line` names the card and its power limit beside a
+measurement.
+
+Library code reaches the session's timer through `span`, `count` and
+`elapsed`; a driver installs its timer for the length of its run
+(`installed`). With no timer installed they record nothing. Spans are
+opened on the main thread only: a profile keeps no thread ids, and a
+worker thread's span would cover the main thread's gaps.
 """
 
 from __future__ import annotations
@@ -14,7 +21,7 @@ import json
 import subprocess
 import time
 from collections import defaultdict
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 import torch
@@ -62,11 +69,9 @@ class MetricsLogger:
     def __init__(self, path: str | Path | None):
         self.path = Path(path) if path else None
         self._fh = open(self.path, "a") if self.path else None
-        self.records: list[dict] = []
 
     def log(self, **record):
         record.setdefault("t_wall", time.time())
-        self.records.append(record)
         if self._fh:
             self._fh.write(json.dumps(record) + "\n")
             self._fh.flush()
@@ -83,25 +88,59 @@ class MetricsLogger:
         self.close()
 
 
+class _Span:
+    """One span of a PhaseTimer: its host-clock time is added to the
+    timer's total on exit; while a torch profiler records, it is also a
+    `record_function` of its name, on the clock of the device's
+    operations."""
+
+    __slots__ = ("timer", "name", "t0", "rf")
+
+    def __init__(self, timer: "PhaseTimer", name: str):
+        self.timer, self.name = timer, name
+
+    def __enter__(self):
+        self.rf = None
+        if torch.autograd._profiler_enabled():
+            self.rf = torch.profiler.record_function(self.name)
+            self.rf.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.timer.add(self.name, time.perf_counter() - self.t0)
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        return False
+
+
 class PhaseTimer:
-    """Accumulating wall-clock timer keyed by phase name.
+    """Accumulating wall-clock timer keyed by span name.
 
     The host clock: a phase measures device work only where the caller
     waits for it inside the phase (`drain`, or a host read of a result).
+    A dotted name is a child of the span its prefix names (`pgo.capture`
+    runs inside `pgo`). A counter (`count`) is an entry of no duration.
     """
 
     def __init__(self):
         self.totals: dict[str, float] = defaultdict(float)
         self.counts: dict[str, int] = defaultdict(int)
 
-    @contextmanager
     def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
+        """A span of `name`, as a context manager."""
+        return _Span(self, name)
+
+    def add(self, name: str, seconds: float):
+        """One call of `name` that took `seconds`, timed by the caller."""
+        self.totals[name] += seconds
+        self.counts[name] += 1
+
+    def count(self, name: str, n: int = 1):
+        """Count `n` events of `name` (n = 0 makes the entry, so that a
+        counter that never fires reads 0 and not missing)."""
+        self.totals[name] += 0.0
+        self.counts[name] += n
 
     def summary(self) -> dict[str, dict]:
         return {
@@ -112,6 +151,52 @@ class PhaseTimer:
 
     def table(self) -> str:
         lines = [f"{'phase':<24}{'count':>8}{'total s':>12}{'mean ms':>12}"]
-        for k, v in sorted(self.summary().items()):
-            lines.append(f"{k:<24}{v['count']:>8}{v['total_s']:>12.3f}{v['mean_ms']:>12.2f}")
+        summary = self.summary()
+        for k, v in sorted(summary.items()):
+            # a child is indented under each of its parents that ran
+            parts = k.split(".")
+            depth = sum(".".join(parts[:i]) in summary for i in range(1, len(parts)))
+            name = "  " * depth + k
+            lines.append(f"{name:<24}{v['count']:>8}{v['total_s']:>12.3f}{v['mean_ms']:>12.2f}")
         return "\n".join(lines)
+
+
+_CURRENT: PhaseTimer | None = None
+_NO_SPAN = nullcontext()
+
+
+@contextmanager
+def installed(timer: PhaseTimer):
+    """Make `timer` the one that `span`, `count` and `elapsed` reach while
+    the block runs (the previous one after it)."""
+    global _CURRENT
+    prev, _CURRENT = _CURRENT, timer
+    try:
+        yield timer
+    finally:
+        _CURRENT = prev
+
+
+def span(name: str):
+    """A span of the installed timer; with none, a bare `record_function`
+    while a torch profiler records, and nothing otherwise."""
+    timer = _CURRENT
+    if timer is not None:
+        return timer.phase(name)
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+def count(name: str, n: int = 1):
+    """Count `n` events of `name` on the installed timer, if any."""
+    if _CURRENT is not None:
+        _CURRENT.count(name, n)
+
+
+def elapsed(name: str, t0: float):
+    """One call of `name` on the installed timer, if any, from t0 (a
+    `time.perf_counter()` reading) to now: a span for code that runs too
+    often for a context manager, and never a profiler span."""
+    if _CURRENT is not None:
+        _CURRENT.add(name, time.perf_counter() - t0)
