@@ -6,7 +6,10 @@
 Phases (any failure raises and exits non-zero):
 1. require a CUDA device; print the card's name and power limit;
 2. build the hand-written CUDA kernels from semicp_torch/csrc;
-3. each kernel against its plain PyTorch version on the card: K1, K2, K3,
+3. make_cloud's upload of a bench scan (one pinned, asynchronous copy,
+   padded on the card) against the host padding and pageable copies it
+   replaced: bit-equal, no host sync, one `upload.pinned`; then
+   each kernel against its plain PyTorch version on the card: K1, K2, K3,
    K6 and G1 (the GN/LM M-step and the end of the EM pass: the pose,
    em_step, n_corr, and the next E-step's moved source and rotated
    covariances, held to the plain tail to the bit) at the main path's
@@ -48,7 +51,8 @@ Phases (any failure raises and exits non-zero):
    sequence of 120000-point scans with raw SemanticKITTI labels, written
    to a temporary directory and run through semicp_torch.cli.run_odometry
    (loader -> prefetch -> K1 -> K2, K3 -> poses.txt, JSONL -> ATE/RPE),
-   with its launch counts, ATE/RPE, ms per frame and host syncs; again
+   with its launch counts, ATE/RPE, ms per frame and host syncs (none in
+   make_cloud, one `upload.pinned` a frame); again
    with --prefetch 0 (equal poses); and a 6-frame sequence of 1900-point
    scans (n_pad 2048: K1, K4, K3) on the card against the CPU;
 9. the baselines on the card: NDT (plain, semantic, d2d) on the bench
@@ -129,6 +133,7 @@ import torch
 
 import semicp_torch
 from semicp_torch import kernels
+from semicp_torch.cloud.cloud import FAR
 from semicp_torch.cloud.covariance import estimate_radius
 from semicp_torch.cloud.moments import (
     moments_plain,
@@ -193,7 +198,7 @@ from semicp_torch.slam import pose_graph, schur
 from semicp_torch.slam.keyframes import KeyframeStore
 from semicp_torch.slam.loop_closure import LoopVerifier
 from semicp_torch.slam.submap import build_submap, submap_points, submap_points_plain
-from semicp_torch.utils.metrics import card_line
+from semicp_torch.utils.metrics import PhaseTimer, card_line, installed
 
 N_POINTS, N_CLASSES, N_PAD = 120000, 20, 131072
 DELTA = np.array([0.5, -0.2, 0.05, 0.01, -0.02, 0.04])
@@ -367,6 +372,35 @@ def host_syncs(fn):
     sites = collections.Counter(f"{os.path.relpath(w.filename)}:{w.lineno}"
                                 for w in caught if "synchroniz" in str(w.message))
     return out, sites
+
+
+def check_upload(pts, lab, dev):
+    """make_cloud on the card (the unpadded scan in one pinned, asynchronous
+    copy, padded there) against the path it replaced: the scan padded on
+    the host and copied pageable. Bit for bit, with no host sync and one
+    `upload.pinned` count."""
+    n = len(pts)
+    xyz = np.full((N_PAD, 3), FAR, np.float32)
+    xyz[:n] = pts
+    label = np.full((N_PAD,), -1, np.int32)
+    label[:n] = lab
+    cov6 = np.zeros((6, N_PAD), np.float32)
+    cov6[:3] = 1.0
+    old = {"xyz": xyz.T.copy(), "label": label, "cov6": cov6, "valid": np.arange(N_PAD) < n,
+           "count": np.asarray(n, np.int32)}
+    old = {k: torch.from_numpy(v).to(dev) for k, v in old.items()}
+    timer = PhaseTimer()
+    with installed(timer):
+        new, sites = host_syncs(lambda: semicp_torch.make_cloud(pts, lab, n_pad=N_PAD, device=dev))
+    torch.cuda.synchronize()
+    pinned = timer.summary()["upload.pinned"]["count"]
+    got = {k: getattr(new, k) for k in old}
+    equal = {k: (got[k].dtype, got[k].shape, got[k].device) == (v.dtype, v.shape, v.device)
+             and got[k].cpu().numpy().tobytes() == v.cpu().numpy().tobytes()
+             for k, v in old.items()}
+    print(f"phase 3: make_cloud of a {n}-point scan at n_pad {N_PAD} against the host-padded "
+          f"pageable upload: bit-equal {equal}; host syncs {dict(sites)}; upload.pinned {pinned}")
+    assert all(equal.values()) and not sites and pinned == 1, (equal, sites, pinned)
 
 
 def cov_from_moments(m):
@@ -1221,10 +1255,13 @@ def phase8(dev, card):
         sum_iters = sum(r["iterations"] for r in recs_s)
         print(f"phase 8: poses with --prefetch 0 against 2: max |diff| {diff0:.3e} (tol 1e-6); "
               f"a third run: max |diff| {float(np.max(np.abs(P2s - P))):.3e}")
+        pinned = tm["upload.pinned"]["count"] / SEQ_FRAMES
         print(f"phase 8: host syncs over the run: {n_flag} EM flags (JSONL iterations "
               f"{sum_iters}), {n_other} others for {SEQ_FRAMES} frames, and {n_upload} in the "
-              f"scans' uploads (make_cloud); by line {dict(sites)}")
+              f"scans' uploads (make_cloud; none: pinned, asynchronous); by line {dict(sites)}; "
+              f"upload.pinned {pinned} a frame")
         assert diff0 <= 1e-6, diff0
+        assert n_upload == 0 and pinned == 1, (n_upload, pinned)
         # beyond the flag of every EM pass (retries included) at most one
         # sync a frame: the result copy that carries its health check
         assert n_flag >= sum_iters and n_other <= SEQ_FRAMES, (n_flag, sum_iters, n_other)
@@ -1507,7 +1544,7 @@ def phase10_loop(root: Path, card, results, dev):
     assert not stray, f"kernels off the SLAM path launched: {stray}"
 
     # host syncs: beyond its EM flags, a frame that is no keyframe may wait
-    # for its result copy and its warm start only (the scan's upload apart)
+    # for its result copy and its warm start only; the scan's upload never
     kind = sync_kinds()
     frames = probe.frame_syncs()
     kf = set(probe.keyframes)
@@ -1524,7 +1561,10 @@ def phase10_loop(root: Path, card, results, dev):
     print(f"phase 10 (a): host syncs over {len(frames)} frames by kind {dict(totals)} (EM passes "
           f"logged {sum(iters)}; a frame's flags count every solve); per frame "
           f"{ {k: v / len(frames) for k, v in totals.items()} }; the most beyond the EM flags in "
-          f"a frame that is no keyframe: {worst} (at most 2)")
+          f"a frame that is no keyframe: {worst} (at most 2); upload.pinned "
+          f"{tm['upload.pinned']['count'] / SLAM_FRAMES} a frame")
+    assert totals["upload"] == 0 and tm["upload.pinned"]["count"] == SLAM_FRAMES, (
+        totals, tm["upload.pinned"])
     n_ver = sum(n for _, n, _, _ in probe.verify)
     ms_ver = sum(ms for ms, _, _, _ in probe.verify) / n_ver
     print(f"phase 10 (a): {len(probe.verify)} loop verifications of {n_ver} candidates, "
@@ -1920,7 +1960,7 @@ def phase11_batch(root: Path, card, dev):
           f"the result copies are 'other'); sites {dict(sites)}")
     assert out["sequences"] == BATCH_SEQS and out["aligns_total"] == BATCH_SEQS * steps
     assert all(a < 0.2 for a in out["ate_rmse_m"]), out["ate_rmse_m"]
-    assert kinds["em_flag"] == em_passes, (kinds, em_passes)
+    assert kinds["em_flag"] == em_passes and kinds["upload"] == 0, (kinds, em_passes)
     missing = [k for k in ("moments_dense", "nn_sparse", "estep_reduce", "gn_solve")
                if launches[k] == 0]
     assert not missing, f"kernels not launched on run_batch's path: {missing}"
@@ -2421,6 +2461,7 @@ def main() -> None:
 
     t0 = time.perf_counter()
     results = []
+    check_upload(src_pts, src_lab, dev)
     src = semicp_torch.preprocess_cloud(
         semicp_torch.make_cloud(src_pts, src_lab, n_pad=N_PAD, device=dev), cfg)
     tgt = semicp_torch.preprocess_cloud(

@@ -11,7 +11,7 @@ at the covariance level (`compare_moments`: atol 1e-5 + rtol 1e-3). K5
 runs K1's walk on an internal order of a raw-layout cloud
 (`raw_walk_inputs`, `moments_raw_walked_chunks`), held the same way and
 to the raw order it returns to. Also the order of K2's 64-bit merge key,
-and the card as the default device.
+the card as the default device, and make_cloud's padding on the device.
 """
 
 import inspect
@@ -21,7 +21,7 @@ import pytest
 import torch
 
 import semicp_torch
-from semicp_torch.cloud.cloud import make_cloud
+from semicp_torch.cloud.cloud import FAR, make_cloud
 from semicp_torch.cloud.moments import (
     RAW_BUCKETS,
     chunk_inputs,
@@ -49,6 +49,7 @@ from semicp_torch.corr.nn_sparse import (
     prepare_sparse,
 )
 from semicp_torch.data import make_pair, make_scene
+from semicp_torch.utils import PhaseTimer, installed
 
 RTOL, ATOL = 1e-4, 1e-3          # chip_smoke.compare_nn
 COV_ATOL, COV_RTOL = 1e-5, 1e-3  # chip_smoke.compare_moments
@@ -358,3 +359,55 @@ def test_make_cloud_defaults_to_the_card():
         with pytest.raises((AssertionError, RuntimeError)):
             cloud_from_numpy(xyz.T, np.zeros(10), np.zeros((6, 10)), np.ones(10, bool), 10)
     assert make_cloud(xyz, n_pad=32, device="cpu").device.type == "cpu"
+
+
+def host_padded(xyz, label, n_pad):
+    """The padding make_cloud did on the host before it padded on the
+    device: (3, n_pad) xyz, (n_pad,) labels, identity cov6, valid, count."""
+    xyz = np.asarray(xyz, np.float32)
+    n = xyz.shape[0]
+    label = np.zeros((n,), np.int32) if label is None else np.asarray(label, np.int32)
+    if n_pad is None:
+        n_pad = max(8, 1 << int(np.ceil(np.log2(max(n, 1)))))
+    xyz_p = np.full((n_pad, 3), FAR, np.float32)
+    xyz_p[:n] = xyz
+    lab_p = np.full((n_pad,), -1, np.int32)
+    lab_p[:n] = label
+    valid = np.zeros((n_pad,), bool)
+    valid[:n] = True
+    cov6 = np.zeros((6, n_pad), np.float32)
+    cov6[:3] = 1.0
+    return {"xyz": xyz_p.T.copy(), "label": lab_p, "cov6": cov6, "valid": valid,
+            "count": np.asarray(n, np.int32)}
+
+
+@pytest.mark.parametrize("n, n_pad, labelled", [
+    (100, 128, True),        # n < n_pad
+    (128, 128, True),        # n == n_pad
+    (100, None, True),       # the default n_pad, the next power of two
+    (50, 64, False),         # no labels: class 0
+    (200, 128, True),        # past the capacity: raises
+])
+def test_make_cloud_pads_as_the_host_did(n, n_pad, labelled):
+    """make_cloud pads on the device to the same arrays, bit for bit, as
+    the host padding it replaced; the cloud shares no memory with the
+    caller's arrays, and the CPU takes no pinned upload."""
+    rng = np.random.default_rng(n)
+    xyz = rng.normal(size=(n, 3)).astype(np.float32)
+    xyz[0] = -0.0
+    label = rng.integers(0, 20, n).astype(np.int32) if labelled else None
+    if n_pad is not None and n > n_pad:
+        with pytest.raises(ValueError, match=f"cloud has {n} points > capacity {n_pad}"):
+            make_cloud(xyz, label, n_pad=n_pad, device="cpu")
+        return
+    want = host_padded(xyz, label, n_pad)
+    with installed(PhaseTimer()) as timer:
+        cloud = make_cloud(xyz, label, n_pad=n_pad, device="cpu")
+    assert timer.summary()["upload.pinned"]["count"] == 0
+    assert cloud.layout == "raw" and cloud.device.type == "cpu"
+    for name, ref in want.items():
+        got = getattr(cloud, name).numpy()
+        assert got.dtype == ref.dtype and got.shape == ref.shape, name
+        assert got.tobytes() == ref.tobytes(), name
+        for mine in (xyz, label):
+            assert mine is None or not np.shares_memory(got, mine), name
