@@ -39,7 +39,9 @@ Phases (any failure raises and exits non-zero):
    its launch counts, host syncs, and the card against the CPU;
 7. the map-scale path: a 500000-point, 20-class pair at n_pad 524288
    through preprocess_cloud (K1) and the fused E-step (K6), with its
-   launch counts and host syncs; the same pair through the split path,
+   launch counts, counters and host syncs (from make_cloud through one
+   align, as a dense sensor's frame: at the EM flag only, every E-step
+   counted `estep.fused`); the same pair through the split path,
    with the time per align in turns, T and the peak device memory of
    both; then one E-step at 524288 queries: K6's walked pairs against
    the plain mirror of its culling, its planes against K2 then K3 at
@@ -52,7 +54,7 @@ Phases (any failure raises and exits non-zero):
    to a temporary directory and run through semicp_torch.cli.run_odometry
    (loader -> prefetch -> K1 -> K2, K3 -> poses.txt, JSONL -> ATE/RPE),
    with its launch counts, ATE/RPE, ms per frame and host syncs (none in
-   make_cloud, one `upload.pinned` a frame); again
+   make_cloud, one `upload.pinned` a frame, no `estep.fused`); again
    with --prefetch 0 (equal poses); and a 6-frame sequence of 1900-point
    scans (n_pad 2048: K1, K4, K3) on the card against the CPU;
 9. the baselines on the card: NDT (plain, semantic, d2d) on the bench
@@ -1039,17 +1041,26 @@ def phase7(dev, results):
     K = N_CLASSES
     assert resolve_engine(cfg, dev) == "sparse" and use_fused_estep(cfg, MAP_PAD)
     s_pts, s_lab, t_pts, t_lab, T_gt = bench_pair(MAP_POINTS, MAP_EXTENT, K)
+    fused_fn = semicp_torch.make_align_fn(cfg)
+
+    def first():
+        # both scans from make_cloud through preprocess_cloud, then one
+        # align: a dense sensor's frame as run_odometry takes it
+        src, tgt = (semicp_torch.preprocess_cloud(
+            semicp_torch.make_cloud(p, lab, n_pad=MAP_PAD, device=dev), cfg)
+            for p, lab in ((s_pts, s_lab), (t_pts, t_lab)))
+        return src, tgt, fused_fn(src, tgt)
+
     torch.cuda.synchronize()
     kernels.reset_launches()
+    timer = PhaseTimer()
     t0 = time.perf_counter()
-    src, tgt = (semicp_torch.preprocess_cloud(
-        semicp_torch.make_cloud(p, lab, n_pad=MAP_PAD, device=dev), cfg)
-        for p, lab in ((s_pts, s_lab), (t_pts, t_lab)))
-    fused_fn = semicp_torch.make_align_fn(cfg)
-    res = fused_fn(src, tgt)
+    with installed(timer):
+        (src, tgt, res), first_sites = host_syncs(first)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    tm = timer.summary()
     T = res.T.cpu().numpy()
     terr, rerr = pose_errors(T, T_gt)
     conv = bool(res.converged)
@@ -1064,6 +1075,16 @@ def phase7(dev, results):
         "the fused E-step (K6) or the M-step (G1) was not launched"
     stray = [k for k in ("nn_sparse", "estep_reduce") if launches[k] != 0]
     assert not stray, f"split E-step kernels launched on the fused path: {stray}"
+    flag = sync_line(em_icp, "the one sync per EM pass")
+    print(f"phase 7: the first run's host syncs {dict(first_sites)}, estep {tm['estep']['count']}"
+          f" (estep.fused {tm['estep.fused']['count']}), upload.pinned "
+          f"{tm['upload.pinned']['count']}")
+    # the uploads and K1 wait for nothing; the align waits only for the EM
+    # flag, once a pass; every E-step is fused
+    assert set(first_sites) <= {flag} and first_sites.get(flag, 0) == int(res.iterations), \
+        first_sites
+    assert tm["estep.fused"]["count"] == tm["estep"]["count"] == int(res.iterations), tm
+    assert tm["upload.pinned"]["count"] == 2, tm
 
     split_fn = semicp_torch.make_align_fn(cfg.override({"em.fused_auto_min_q": 2 * MAP_PAD}))
     ms = {}
@@ -1256,12 +1277,15 @@ def phase8(dev, card):
         print(f"phase 8: poses with --prefetch 0 against 2: max |diff| {diff0:.3e} (tol 1e-6); "
               f"a third run: max |diff| {float(np.max(np.abs(P2s - P))):.3e}")
         pinned = tm["upload.pinned"]["count"] / SEQ_FRAMES
+        fused = tm["estep.fused"]["count"] / SEQ_FRAMES
         print(f"phase 8: host syncs over the run: {n_flag} EM flags (JSONL iterations "
               f"{sum_iters}), {n_other} others for {SEQ_FRAMES} frames, and {n_upload} in the "
               f"scans' uploads (make_cloud; none: pinned, asynchronous); by line {dict(sites)}; "
-              f"upload.pinned {pinned} a frame")
+              f"upload.pinned {pinned} a frame; estep.fused {fused} a frame (n_pad {SEQ_PAD}: "
+              f"the split E-step)")
         assert diff0 <= 1e-6, diff0
         assert n_upload == 0 and pinned == 1, (n_upload, pinned)
+        assert fused == 0, fused
         # beyond the flag of every EM pass (retries included) at most one
         # sync a frame: the result copy that carries its health check
         assert n_flag >= sum_iters and n_other <= SEQ_FRAMES, (n_flag, sum_iters, n_other)

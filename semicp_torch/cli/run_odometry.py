@@ -18,8 +18,8 @@ The session's PhaseTimer (the result's "timing", the table on stderr) is
 installed for the run: the driver's spans `session_setup`, `scan_wait`,
 `preprocess`, `align`, `write_poses` and `session_finish`, and the
 library's `preprocess.upload`, `.sort`, `.moments`, `em.wait` and the
-counter `align.retry`. Under a torch profiler each span is also a
-`record_function` of its name.
+counters `align.retry`, `estep` and `estep.fused`. Under a torch profiler
+each span is also a `record_function` of its name.
 
 Usage:
   python -m semicp_torch.cli.run_odometry --seq /path/to/sequence [--voxel 0.3]
@@ -97,7 +97,7 @@ def synthetic_frames(n_frames, n_points, seed=0):
 def run_odometry(args, cfg: Config):
     """One session: (the result, its PhaseTimer). The timer is installed
     for the session, so the spans and counters of the library code it runs
-    (preprocess.*, em.wait, align.retry) land in its table."""
+    (preprocess.*, em.wait, align.retry, estep, estep.fused) land in its table."""
     timer = PhaseTimer()
     timer.count("align.retry", 0)
     with installed(timer):

@@ -30,9 +30,9 @@ installed for the run: the driver's spans `session_setup`, `scan_wait`,
 `preprocess`, `odometry`, `keyframe` (each frame's bookkeeping),
 `submap`, `loop_search` and `loop_verify`, `pgo` (after an accepted loop
 edge), `session_finish` with `pgo_final` and `write_poses`, and the
-library's `preprocess.*`, `em.wait`, `pgo.*` and the counter
-`align.retry`. Under a torch profiler each span is also a
-`record_function` of its name.
+library's `preprocess.*`, `em.wait`, `pgo.*` and the counters
+`align.retry`, `estep` and `estep.fused`. Under a torch profiler each span
+is also a `record_function` of its name.
 
 With --dist (the fourth configuration) the submap becomes map blocks
 sharded over the mesh's ranks (dist/mesh.py; on one card a group of one
@@ -222,7 +222,7 @@ def _pgo(graph, cfg: Config, dev, mesh):
 def run_slam(args, cfg: Config):
     """One session: (the result, its PhaseTimer). The timer is installed
     for the session, so the spans and counters of the library code it runs
-    (preprocess.*, em.wait, align.retry, pgo.*) land in its table."""
+    (preprocess.*, em.wait, align.retry, estep, estep.fused, pgo.*) land in its table."""
     timer = PhaseTimer()
     timer.count("align.retry", 0)
     with installed(timer):

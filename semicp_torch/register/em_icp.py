@@ -17,7 +17,9 @@ Port of `semicp/register/em_icp.py` (the pairwise path). Each EM pass:
 The JAX `while_loop` becomes a host loop whose only device sync is the
 convergence flag, read once per EM pass. The host's waits on the device,
 that read and the result's copy (`_to_host`), are the span `em.wait`; a
-health check's re-solve counts one `align.retry`. Everything else is queued
+health check's re-solve counts one `align.retry`, each E-step one
+`estep`, and each that ran K6's branch one `estep.fused` (0 on every other
+branch, so that the counter is always present). Everything else is queued
 without waiting on the device: G1 keeps the pose and loop state on the
 device, and the host never reads them. On CUDA an EM pass is the E-step's
 kernels (K2 or K4, then K3; or K6), G1 and the flag.
@@ -108,10 +110,13 @@ def _estep(tgt_prep, src: Cloud, log_sem, moved, rc, cfg: Config, gate, gate2):
     """
     K = cfg.cloud.num_classes
     kind, prep = tgt_prep
+    fused = kind == "sparse" and use_fused_estep(cfg, src.n_pad)
+    count("estep")
+    count("estep.fused", int(fused))
+    if fused:
+        # one kernel: no (K, 16, N) intermediate in device memory
+        return estep_sparse_fused(prep, moved, src.valid, rc, log_sem, K, gate)
     if kind == "sparse":
-        if use_fused_estep(cfg, src.n_pad):
-            # one kernel: no (K, 16, N) intermediate in device memory
-            return estep_sparse_fused(prep, moved, src.valid, rc, log_sem, K, gate)
         nn_d2, attrs = class_nn_attrs_sparse(prep, moved, src.valid, K, gate)
     elif kind == "sorted":
         nn_d2, attrs = class_nn_attrs_dense(prep["xyz_s"], prep["label_s"], prep["attrs16"],

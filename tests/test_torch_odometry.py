@@ -69,7 +69,8 @@ def test_odometry_matches_jax(runs):
     assert set(out["jax"]["timing"]) == {"preprocess", "align"}
     assert set(out[3]["timing"]) == {"preprocess", "align"} | {
         "session_setup", "scan_wait", "write_poses", "session_finish", "preprocess.upload",
-        "preprocess.sort", "preprocess.moments", "em.wait", "align.retry", "upload.pinned"}
+        "preprocess.sort", "preprocess.moments", "em.wait", "align.retry", "upload.pinned",
+        "estep", "estep.fused"}
     rj, rt = ([json.loads(line) for line in (d / f"{n}.jsonl").read_text().splitlines()]
               for n in ("jax", "t3"))
     assert len(rt) == len(rj) == 7
